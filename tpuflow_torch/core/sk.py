@@ -1,0 +1,143 @@
+"""SKFlow update blocks of VideoFlow's MOF net (port of tpuflow/core/sk.py):
+PCBlock4_Deep_nopool_res, SKMotionEncoder6_Deep_nopool_res and
+SKUpdateBlock6_Deep_nopoolres_AllDecoder2 under their upstream state-dict
+names.  Public tensors are NHWC; the convs run on NCHW views of them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from .encoders import gelu
+from .gma import Aggregate
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class PCBlock4(nn.Module):
+    """`PCBlock4_Deep_nopool_res` (NCHW): residual 1.5x FFN -> residual
+    depthwise super-kernels (k in k_conv) -> residual pointwise -> output
+    FFN, GELU after every residual add."""
+
+    def __init__(self, c_in: int, c_out: int, k_conv: Sequence[int]):
+        super().__init__()
+        mid = int(1.5 * c_in)
+        self.conv_list = nn.ModuleList(
+            nn.Conv2d(c_in, c_in, k, padding=k // 2, groups=c_in) for k in k_conv
+        )
+        self.ffn1 = nn.Sequential(nn.Conv2d(c_in, mid, 1), nn.GELU(), nn.Conv2d(mid, c_in, 1))
+        self.pw = nn.Conv2d(c_in, c_in, 1)
+        self.ffn2 = nn.Sequential(nn.Conv2d(c_in, mid, 1), nn.GELU(), nn.Conv2d(mid, c_out, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = gelu(x + self.ffn1[2](gelu(self.ffn1[0](x))))
+        for conv in self.conv_list:
+            x = gelu(x + conv(x))
+        x = gelu(x + self.pw(x))
+        return self.ffn2[2](gelu(self.ffn2[0](x)))
+
+
+class SKMotionEncoderMOF(nn.Module):
+    """`SKMotionEncoder6_Deep_nopool_res`: bidirectional correlation lookup
+    + 4-channel flow + the 48-channel motion hidden states of the
+    neighbouring interior frames -> 128-channel motion features (NCHW)."""
+
+    def __init__(self, corr_levels: int, corr_radius: int, k_conv: Sequence[int], hidden_ch: int = 48):
+        super().__init__()
+        cor_planes = corr_levels * (2 * corr_radius + 1) ** 2 * 2
+        self.hidden_ch = hc = hidden_ch
+        self.convc1 = PCBlock4(cor_planes, 256, k_conv)
+        self.convc2 = PCBlock4(256, 192, k_conv)
+        self.init_hidden_state = nn.Parameter(torch.randn(1, 1, hc, 1, 1))
+        self.convf1_ = nn.Conv2d(4, 128, 1)
+        self.convf2 = PCBlock4(128, 64, k_conv)
+        self.conv = PCBlock4(64 + 192 + hc * 3, 128 - 4 + hc, k_conv)
+
+    def forward(
+        self, flow: torch.Tensor, mhs: Optional[torch.Tensor], corr: torch.Tensor, bs: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """flow [B*N, 4, h, w], corr [B*N, cor_planes, h, w], mhs
+        [B, N, 48, h, w] or None (the learned init) -> (motion features
+        [B*N, 128, h, w], new mhs [B, N, 48, h, w])."""
+        bn, _, h, w = flow.shape
+        n = bn // bs
+        hc = self.hidden_ch
+        if mhs is None:
+            mhs = self.init_hidden_state.to(corr.dtype).expand(bs, n, hc, h, w)
+        zeros = torch.zeros((bs, 1, hc, h, w), dtype=mhs.dtype, device=mhs.device)
+        fwd_mhs = torch.cat([mhs[:, 1:], zeros], dim=1).reshape(bn, hc, h, w)
+        bwd_mhs = torch.cat([zeros, mhs[:, :-1]], dim=1).reshape(bn, hc, h, w)
+        cur_mhs = mhs.reshape(bn, hc, h, w)
+
+        cor = self.convc2(gelu(self.convc1(corr)))
+        flow = flow.to(corr.dtype)
+        flo = self.convf2(self.convf1_(flow))
+        out = self.conv(torch.cat([cor, flo, fwd_mhs, bwd_mhs, cur_mhs], dim=1))
+        motion, new_mhs = torch.split(out, [128 - 4, hc], dim=1)
+        return torch.cat([motion, flow], dim=1), new_mhs.reshape(bs, n, hc, h, w)
+
+
+class SKUpdateBlockMOF(nn.Module):
+    """`SKUpdateBlock6_Deep_nopoolres_AllDecoder2`: one joint bidirectional
+    refinement step.
+
+    net'  = PCBlock([net, inp, motion, gma(motion)])   ("gru")
+    delta = PCBlock(net') -> 4 channels                ("flow_head")
+    mask  = 0.25 * conv stack(net') -> 2*64*9 channels ("mask")
+    """
+
+    def __init__(
+        self,
+        corr_levels: int = 4,
+        corr_radius: int = 4,
+        hidden_dim: int = 128,
+        k_conv: Sequence[int] = (1, 15),
+        pc_updater_conv: Sequence[int] = (1, 7),
+    ):
+        super().__init__()
+        self.encoder = SKMotionEncoderMOF(corr_levels, corr_radius, k_conv)
+        self.gru = PCBlock4(128 + hidden_dim + hidden_dim + 128, hidden_dim, pc_updater_conv)
+        self.flow_head = PCBlock4(hidden_dim, 4, k_conv)
+        self.mask = nn.Sequential(
+            nn.Conv2d(hidden_dim, 256, 3, padding=1),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(256, 64 * 9 * 2, 1),
+        )
+        self.aggregator = Aggregate(dim=128)
+
+    def step(self, net, mhs, inp, corr, flow, q, k, bs: int):
+        """The refinement step without the mask head (NHWC in and out):
+        net, inp [B*N, h, w, 128], corr [B*N, h, w, 2*L*(2r+1)^2], flow
+        [B*N, h, w, 4] f32, q/k [B*N, h, w, 128], mhs [B, N, h, w, 48] or
+        None -> (net, mhs, delta_flow)."""
+        motion, mhs = self.encoder(
+            nhwc_to_nchw(flow),
+            None if mhs is None else mhs.permute(0, 1, 4, 2, 3),
+            nhwc_to_nchw(corr),
+            bs,
+        )
+        motion = nchw_to_nhwc(motion)
+        motion_global = self.aggregator(q, k, motion)
+        x = torch.cat([net, inp, motion, motion_global], dim=-1)
+        net = nchw_to_nhwc(self.gru(nhwc_to_nchw(x)))
+        delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))
+        return net, mhs.permute(0, 1, 3, 4, 2), delta
+
+    def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
+        """[B*N, h, w, 128] -> [B*N, h, w, 2*576] convex-upsample weights."""
+        return nchw_to_nhwc(0.25 * self.mask(nhwc_to_nchw(net)))
+
+    def forward(self, net, mhs, inp, corr, flow, q, k, bs: int):
+        """One full step, as the reference's update block returns it:
+        (net, mhs, mask, delta_flow), all NHWC."""
+        net, mhs, delta = self.step(net, mhs, inp, corr, flow, q, k, bs)
+        return net, mhs, self.upsample_mask(net), delta

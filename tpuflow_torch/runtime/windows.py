@@ -1,0 +1,20 @@
+"""Frame-window index math (copy of tpuflow/runtime/windows.py)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def centered_window_indices(num_frames: int, frame_idx: int, length: int) -> np.ndarray:
+    """Centered window with edge replication, mirroring
+    videoflow_processor.py:122-147.  Returns int array [length]."""
+    half = length // 2
+    start = max(0, frame_idx - half)
+    end = min(num_frames, frame_idx + half + 1)
+    seq = list(range(start, end))
+    while len(seq) < length:
+        if start == 0:
+            seq.insert(0, seq[0])
+        else:
+            seq.append(seq[-1])
+    return np.asarray(seq[:length], dtype=np.int32)
