@@ -10,16 +10,33 @@ prints no result lines):
    power limit.
 2. build: every CUDA kernel from tpuflow_torch/csrc, one nvcc per source,
    all started together.
-3. kernels: each kernel against its plain PyTorch version at the shapes of
-   the main path (1920x1080 frame, two 960x1080 tiles, /8 grid 135x120,
-   6 batch rows per window), with its time, its plain version's time, its
-   bound on the card and, where one exists, one PyTorch call's time.
-4. end to end: FlowEngine.compute_flows_tiled_stride1 on six synthetic
-   1920x1080 frames at the full configuration (Twins-SVT, 4 levels, radius
-   4, 12 iterations, T=5, bf16, seeded random weights).  The kernels'
-   launch counters are zeroed just before and read just after.
-5. parity: one small clip through the same engine weights in f32 with TF32
-   off, on the CPU (plain versions) and on the card (kernels).
+3. kernels: each kernel against its plain PyTorch version at the shapes
+   its path gives it, with its time, its plain version's time, its bound on
+   the card and, where one exists, one PyTorch call's time.  K1 and K2 at
+   the tiled path (two 960x1080 tiles, /8 grid 135x120, 6 batch rows per
+   window), K1 also as the 'flash' sidecar there and K2 also at the untiled
+   window's [3, 32400, 128]; the correlation-patch kernel (K3 and K5) at
+   the untiled 1920x1080 window (3 x 135x240 queries, C = 256), K5 also at
+   level 0 of the tile shape, both against an f32 reference; the
+   volume-patch kernel (K4 flat layout, K6 band layout) at the tile shape,
+   bit for bit; each also on ragged shapes.
+4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
+   synthetic 1920x1080 frames at the full configuration (Twins-SVT, 4
+   levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
+   kernels' launch counters are zeroed just before and read just after.
+5. end to end, untiled: one 1920x1080 window through FlowEngine.compute_flow
+   with corr_impl='auto' (FlashCorr2, kernel K3; counters as above), then
+   the same window with corr_impl='dense', and the two flows compared.
+6. multi-window, untiled: compute_flows_strided on seven 1920x1080 frames
+   with window_batch=2 and compute_flow_batch with two windows; the middle
+   interior frame of a strided window against compute_flow.
+7. formulations: corr_impl 'flash' (K5 + K1 sidecar), 'band' (K6) and
+   dense_lookup='patch' (K4) through MOFNet at the tile shape with 2
+   iterations, each against corr_impl='dense' at the same depth, with
+   launch counters.
+8. parity: one small clip through the same engine weights in f32 with TF32
+   off, on the CPU (plain versions) and on the card (kernels): tiled, and
+   one untiled window above the materialization threshold (FlashCorr2).
 
 Output: progress lines, then one JSON line with every kernel's numbers, the
 card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -44,7 +61,22 @@ F32_FLOP_PER_S = 67e12
 
 MAIN_FRAMES = 6
 MAIN_H, MAIN_W = 1080, 1920
+FORMULATION_DEPTH = 2             # iterations of the 'flash' / 'band' / 'patch' runs
+UNTILED_QUERIES = (3, 135, 240)   # interior frames x the /8 grid of one 1920x1080 window
+TILE_QUERIES = (6, 135, 120)      # 2 tiles x 3 interior frames x the /8 grid of a 960x1080 tile
+FEATURE_DIM = 256
 PARITY_SHAPE = (5, 128, 256)      # frames, H, W: two 128x128 tiles at tile_size 128
+# Two bf16 runs of one window that round differently (another formulation,
+# another batch size) are held to these shares of the mean |flow|.  Sound
+# runs read 5.2e-4 to 1.3e-3 (mean) and 3.5e-3 to 8.9e-3 (max) on an H100.
+FLOW_MEAN_LIMIT = 5e-3
+FLOW_MAX_LIMIT = 3e-2
+# Lookup features of two formulations at the same flows, per level, as shares
+# of the level's largest and mean |feature| (see check_lookups_agree).  Sound
+# runs read 1.0e-2 to 1.3e-2 (max) and 2.7e-3 to 2.9e-3 (mean) on an H100;
+# a misplaced window axis or level differs by the features' own size.
+LOOKUP_MAX_LIMIT = 2**-5
+LOOKUP_MEAN_LIMIT = 2**-7
 SEED = 0
 
 
@@ -112,17 +144,19 @@ def check_dense_lookup(dev) -> dict:
     from tpuflow_torch.kernels.denselookup import dense_lookup, dense_lookup_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    for levels, r, dtype in ((3, 2, torch.float32), (4, 4, torch.bfloat16)):
+    # The last case is a sidecar pyramid: stored levels sampled at 2^(l+1).
+    for levels, r, dtype, off in ((3, 2, torch.float32, 0), (4, 4, torch.bfloat16, 0),
+                                  (2, 3, torch.bfloat16, 1)):
         b, h, w = 2, 9, 11
-        vols = random_volumes(g, dev, b * h * w, h, w, levels, dtype)
+        vols = random_volumes(g, dev, b * h * w, h >> off, w >> off, levels, dtype)
         flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * torch.tensor(
             [1.5 * w, 1.5 * h], device=dev)
-        err = (dense_lookup(vols, flow, r) - dense_lookup_plain(vols, flow, r)).abs().max().item()
-        log(f"K1 ragged {b}x{h}x{w} L={levels} r={r} {dtype}: max |kernel - plain| = {err:.3e}")
+        err = (dense_lookup(vols, flow, r, off) - dense_lookup_plain(vols, flow, r, off)).abs().max().item()
+        log(f"K1 ragged {b}x{h}x{w} L={levels} r={r} offset={off} {dtype}: max |kernel - plain| = {err:.3e}")
         if not err <= 1e-5:
             raise AssertionError(f"K1 disagrees with its plain version on a ragged shape: {err}")
 
-    b, h, w, levels, r = 6, 135, 120, 4, 4
+    (b, h, w), levels, r = TILE_QUERIES, 4, 4
     vols = random_volumes(g, dev, b * h * w, h, w, levels, torch.bfloat16)
     flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 80.0 - 40.0).contiguous()
 
@@ -135,6 +169,15 @@ def check_dense_lookup(dev) -> dict:
     # rounded, never fused into FMAs) on the same bf16 taps.
     if not math.isfinite(err) or err > 1e-5:
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
+
+    # The 'flash' path's sidecar at the same queries: levels 1-3 of the
+    # pyramid stored alone and sampled at 2^(l+1).
+    side_vols = random_volumes(g, dev, b * h * w, h // 2, w // 2, 3, torch.bfloat16)
+    side_err = (dense_lookup(side_vols, flow, r, 1) - dense_lookup_plain(side_vols, flow, r, 1)).abs().max().item()
+    log(f"K1 dense_lookup sidecar, 3 levels from {h // 2}x{w // 2}, offset 1: max |kernel - plain| = {side_err:.3e}")
+    if not side_err <= 1e-5:
+        raise AssertionError(f"K1 with level_offset=1 disagrees with its plain version: {side_err}")
+    del side_vols
 
     # Least bytes for this run's data: the in-plane taps of every query's
     # (2r+2)^2 patch at every level, the flow, and the f32 output.
@@ -198,10 +241,10 @@ def check_dense_lookup(dev) -> dict:
 
 
 def check_flash_attention(dev) -> dict:
-    """K2 at the main path: q, k, v [6, 16200, 128] bf16, q pre-scaled by
-    128^-0.5 as Attention emits it."""
-    import torch.nn.functional as F
-
+    """K2 on ragged key counts, then at both shapes its paths give it, q, k,
+    v bf16 with q pre-scaled by 128^-0.5 as Attention emits it: the tiled
+    window's [6, 16200, 128] (254 key tiles of 64, the last of 8 keys) and
+    the untiled window's [3, 32400, 128] (507 tiles, the last of 16)."""
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -223,10 +266,27 @@ def check_flash_attention(dev) -> dict:
         if not excess <= 0:
             raise AssertionError(f"K2 disagrees with its plain version at S={s} {dtype}")
 
-    # Main path, two draws.  At the model's scale (logits N(0, 1) over 16200
-    # keys) the softmax is nearly uniform and outputs are ~0.01; with a
-    # logit spread of 4 (q scaled up) a few keys dominate and outputs are
-    # O(0.3).  Each draw is held to an f32 reference `exact`:
+    tiled = flash_attention_at(qkv, TILE_QUERIES[0], TILE_QUERIES[1] * TILE_QUERIES[2])
+    untiled = flash_attention_at(qkv, UNTILED_QUERIES[0], UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
+    return {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "tpuflow_torch/csrc/flash_attention.cu",
+        "replaces": "tpuflow/core/gma.py:35",
+        **tiled, "at_untiled_window": untiled,
+    }
+
+
+def flash_attention_at(qkv, b: int, s: int) -> dict:
+    """K2 at [b, s, 128] bf16 against its plain version (chunked over
+    queries) and an f32 reference, two draws, then its times and bound."""
+    import torch.nn.functional as F
+
+    from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
+
+    # At the model's scale (logits N(0, 1) over s keys) the softmax is nearly
+    # uniform and outputs are ~0.01; with a logit spread of 4 (q scaled up) a
+    # few keys dominate and outputs are O(0.3).  Each draw is held to an f32
+    # reference `exact`:
     # - elementwise, against the rounding bound.  Both the kernel and the
     #   plain version round each probability (relative 2^-8, bf16's unit
     #   roundoff) and the output (2^-8 |out|) to bf16, so each errs by at
@@ -234,8 +294,9 @@ def check_flash_attention(dev) -> dict:
     #   by at most 2^-6 * scale;
     # - by norm: the kernel no worse than the plain bf16 version by more
     #   than a quarter.  A dropped or doubled 64-key tile moves the output by
-    #   about sqrt(64 / 16200) = 6e-2 of its norm even at the model's scale.
-    b, s, d = 6, 135 * 120, 128
+    #   about sqrt(64 / s) (6e-2 at 16200 keys, 4e-2 at 32400) of its norm
+    #   even at the model's scale.
+    d = 128
     err = 0.0
     for name, logit_std in (("model scale", 1.0), ("peaked", 4.0)):
         q, k, v = qkv(b, s, torch.bfloat16)
@@ -256,8 +317,8 @@ def check_flash_attention(dev) -> dict:
             f"max |kernel - f32| = {ratio_exact:.3e} scale, by norm vs f32: kernel {rel_kernel:.3e} "
             f"plain {rel_plain:.3e}")
         if not (ratio_exact <= 2**-7 and ratio_plain <= 2**-6 and rel_kernel <= 1.25 * rel_plain + 1e-4):
-            raise AssertionError(f"K2 disagrees with its plain version ({name}): {diff.max().item()}, "
-                                 f"by norm {rel_kernel} vs plain {rel_plain}")
+            raise AssertionError(f"K2 disagrees with its plain version at [{b},{s},{d}] ({name}): "
+                                 f"{diff.max().item()}, by norm {rel_kernel} vs plain {rel_plain}")
     del exact, scale, got, ref
 
     flops = 4.0 * b * s * s * d
@@ -269,14 +330,192 @@ def check_flash_attention(dev) -> dict:
         lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=1.0),
         reps=20,
     )
-    log(f"K2 ms {ms:.4f}  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound {bound:.4f} ({flops / 1e9:.0f} GFLOP)")
+    log(f"K2 [{b},{s},{d}] ms {ms:.4f}  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound {bound:.4f} "
+        f"({flops / 1e9:.0f} GFLOP)")
     return {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "tpuflow_torch/csrc/flash_attention.cu",
-        "replaces": "tpuflow/core/gma.py:35",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "shape": [b, s, d], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": lib_ms,
+    }
+
+
+def patch_geometry(flow, lvl, lh, lw, r):
+    """Clamped patch rows and columns [B, h*w, 2r+2] int32 of one level."""
+    from tpuflow_torch.core.corr import _base_coords, _radius_patch_indices
+
+    idx = _radius_patch_indices(*_base_coords(flow), lvl, lh, lw, r)
+    return idx.rr, idx.cc
+
+
+def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
+    """The correlation-patch kernel through one of its two wrappers (K3
+    `flash2_patch_level`, K5 `flash_patch_level`): ragged shapes, then one
+    lookup of the untiled 1920x1080 window: 3 x 135x240 queries, C = 256,
+    radius 4, 4 pooled levels, bf16, flows of +-40 px.
+
+    Tolerances, per entry, with scale = sum_c |f1_c| |f2_c| / sqrt(C): the
+    kernel sums in f32 and rounds once to bf16 (half an ulp, 2^-9 of the
+    value), so it lies within 2^-8 scale of an f32 reference; the plain
+    version sums in another order, and where the f32 sums straddle a rounding
+    boundary the two land one bf16 ulp apart: within 2^-7 scale.  Both limits
+    carry 1 % for the f32 sums' own error, since an entry whose products all
+    share a sign reaches the scale itself.  In f32 the two differ by
+    summation order only: 1e-5 of scale.
+
+    `also` = ((B, h, w), levels): one more bf16 shape the wrapper's path
+    gives it, held to the same limits."""
+    from tpuflow_torch.core.corr import _pooled_features
+
+    name = wrapper.__name__
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def draw(b, h, w, c, levels, dtype, flow_px):
+        f1 = torch.randn((b, h * w, c), generator=g, device=dev).to(dtype)
+        pooled = [p.contiguous() for p in _pooled_features(
+            torch.randn((b, h, w, c), generator=g, device=dev).to(dtype), levels)]
+        flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * flow_px
+        return f1, pooled, flow
+
+    def compare(f1, pooled, flow, r):
+        """(max |kernel - plain|, worst kernel-vs-plain, worst kernel-vs-f32),
+        the last two in units of the entry's scale."""
+        err = vs_plain = vs_exact = 0.0
+        for lvl, f2l in enumerate(pooled):
+            rr, cc = patch_geometry(flow, lvl, f2l.shape[1], f2l.shape[2], r)
+            got = wrapper(f1, f2l, rr, cc).float()
+            ref = plain(f1, f2l, rr, cc).float()
+            exact = plain(f1.float(), f2l.float(), rr, cc)
+            scale = plain(f1.float().abs(), f2l.float().abs(), rr, cc) + 1e-6
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: non-finite output at level {lvl}")
+            err = max(err, (got - ref).abs().max().item())
+            vs_plain = max(vs_plain, ((got - ref).abs() / scale).max().item())
+            vs_exact = max(vs_exact, ((got - exact).abs() / scale).max().item())
+        return err, vs_plain, vs_exact
+
+    # Ragged: 2 x 13 x 17 = 442 queries (no block of 8 divides 221 per
+    # image), C below and off the 16-byte vector width, both radii, flows
+    # that push whole windows off the plane.
+    for c, r, dtype, levels in ((32, 3, torch.float32, 3), (20, 4, torch.bfloat16, 2),
+                                (6, 3, torch.float32, 2), (40, 3, torch.bfloat16, 3)):
+        f1, pooled, flow = draw(2, 13, 17, c, levels, dtype, 20.0)
+        err, vs_plain, vs_exact = compare(f1, pooled, flow, r)
+        log(f"{name} ragged 2x13x17 C={c} r={r} L={levels} {dtype}: max |kernel - plain| = {err:.3e} "
+            f"= {vs_plain:.3e} scale, |kernel - f32| = {vs_exact:.3e} scale")
+        lim_plain, lim_exact = (1e-5, 1e-5) if dtype == torch.float32 else (1.01 * 2**-7, 1.01 * 2**-8)
+        if not (vs_plain <= lim_plain and vs_exact <= lim_exact):
+            raise AssertionError(f"{name} disagrees on a ragged shape: {vs_plain} {vs_exact}")
+
+    c, r = FEATURE_DIM, 4
+    side = 2 * r + 2
+    # The path's shapes, the untiled window's last: the timings below use it.
+    for (b, h, w), levels in ([also] if also else []) + [(UNTILED_QUERIES, 4)]:
+        f1, pooled, flow = draw(b, h, w, c, levels, torch.bfloat16, 40.0)
+        err, vs_plain, vs_exact = compare(f1, pooled, flow, r)
+        log(f"{name} [{b},{h * w},{c}] r={r} L={levels} bf16: max |kernel - plain| = {err:.3e} = {vs_plain:.3e} "
+            f"scale (limit 2^-7), max |kernel - f32| = {vs_exact:.3e} scale (limit 2^-8)")
+        if not (vs_plain <= 1.01 * 2**-7 and vs_exact <= 1.01 * 2**-8):
+            raise AssertionError(f"{name} disagrees at [{b},{h * w},{c}] L={levels}: {vs_plain} {vs_exact}")
+
+    # One lookup = one launch per level.  Least bytes for this run's data: f1
+    # once, each target row some patch touches once, the indices, the output.
+    geo = [patch_geometry(flow, lvl, p.shape[1], p.shape[2], r) for lvl, p in enumerate(pooled)]
+    n = b * h * w
+    nbytes = f1.numel() * 2
+    for (rr, cc), f2l in zip(geo, pooled):
+        touched = torch.zeros(f2l.shape[:3], dtype=torch.bool, device=dev)
+        bidx = torch.arange(b, device=dev)[:, None, None, None]
+        touched[bidx, rr.long()[:, :, :, None], cc.long()[:, :, None, :]] = True
+        nbytes += int(touched.sum().item()) * c * 2 + 2 * rr.numel() * 4 + n * side * side * 2
+    flops = 2.0 * c * side * side * n * levels
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+
+    def lookup(fn):
+        return [fn(f1, f2l, rr, cc) for (rr, cc), f2l in zip(geo, pooled)]
+
+    ms = time_ms(lambda: lookup(wrapper), reps=10)
+    plain_ms = time_ms(lambda: lookup(plain), reps=2, warmup=1)
+    log(f"{name} ms {ms:.4f} per lookup ({levels} launches)  plain {plain_ms:.4f}  no single library call  "
+        f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+    return {
+        "name": name, "route": "cuda", "source": "tpuflow_torch/csrc/corr_patch.cu",
+        "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations",
+        "library_ms": None,
+    }
+
+
+def check_volume_patch(dev, layout: str) -> dict:
+    """The volume-patch kernel through K4 `dense_patch_level` (layout 'flat',
+    levels [B*Nq, lh, lw]) or K6 `band_patch_level` (layout 'band', levels
+    [B, lh, Nq, lw]): a copy of volume entries, so kernel and plain version
+    must be bitwise equal.  Ragged (2 x 9 x 11 queries, f32, r = 3, flows off
+    the plane), then the tile shape: 6 x 135x120 queries, 4 bf16 levels,
+    r = 4, flows of +-40 px."""
+    from tpuflow_torch.kernels.bandlookup import band_patch_level, band_patch_level_plain
+    from tpuflow_torch.kernels.denselookup import dense_patch_level, dense_patch_level_plain
+
+    wrapper, plain, replaces = {
+        "flat": (dense_patch_level, dense_patch_level_plain, "tpuflow/kernels/denselookup.py:156"),
+        "band": (band_patch_level, band_patch_level_plain, "tpuflow/kernels/bandlookup.py:184"),
+    }[layout]
+    name = wrapper.__name__
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def draw(b, h, w, levels, dtype, r, flow_px):
+        vols = random_volumes(g, dev, b * h * w, h, w, levels, dtype)
+        if layout == "band":   # [B*Nq, lh, lw] -> [B, lh, Nq, lw]
+            vols = [v.reshape(b, h * w, *v.shape[1:]).transpose(1, 2).contiguous() for v in vols]
+        flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * flow_px
+        dims = [(v.shape[1], v.shape[-1]) for v in vols]
+        return vols, [patch_geometry(flow, lvl, lh, lw, r) for lvl, (lh, lw) in enumerate(dims)]
+
+    for b, h, w, levels, dtype, r_, px in ((2, 9, 11, 3, torch.float32, 3, 15.0),
+                                           (*TILE_QUERIES, 4, torch.bfloat16, 4, 40.0)):
+        vols, geo = draw(b, h, w, levels, dtype, r_, px)
+        for vol, (rr, cc) in zip(vols, geo):
+            got, ref = wrapper(vol, rr, cc), plain(vol, rr, cc)
+            torch.cuda.synchronize()
+            if got.dtype != vol.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"{name} is not bitwise equal to its plain version at "
+                                     f"{tuple(vol.shape)} {dtype}")
+        log(f"{name} {b}x{h}x{w} L={levels} r={r_} {dtype}: bitwise equal to its plain version")
+
+    # The last draw is the tile shape.  Least bytes: each distinct entry a
+    # patch needs read once (clamped indices repeat at the border), the
+    # indices, the output.
+    side = 2 * r_ + 2
+    nbytes = 0
+    for vol, (rr, cc) in zip(vols, geo):
+        rows = rr.max(dim=2).values - rr.min(dim=2).values + 1
+        cols = cc.max(dim=2).values - cc.min(dim=2).values + 1
+        nbytes += int((rows * cols).sum().item()) * 2 + 2 * rr.numel() * 4 + rr.shape[0] * rr.shape[1] * side * side * 2
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+
+    bidx = torch.arange(b, device=dev)[:, None, None, None]
+    qidx = torch.arange(h * w, device=dev)[None, :, None, None]
+    long_geo = [(rr.long()[:, :, :, None], cc.long()[:, :, None, :]) for rr, cc in geo]
+
+    def indexing():
+        """Yardstick, never used by the port: one advanced-indexing gather per
+        level."""
+        if layout == "band":
+            return [v[bidx, ri, qidx, ci] for v, (ri, ci) in zip(vols, long_geo)]
+        return [v.view(b, h * w, *v.shape[1:])[bidx, qidx, ri, ci] for v, (ri, ci) in zip(vols, long_geo)]
+
+    for got, vol, (rr, cc) in zip(indexing(), vols, geo):
+        if not torch.equal(got, wrapper(vol, rr, cc)):
+            raise AssertionError(f"{name}: the indexing yardstick computes another function")
+    ms = time_ms(lambda: [wrapper(v, rr, cc) for v, (rr, cc) in zip(vols, geo)], reps=20)
+    plain_ms = time_ms(lambda: [plain(v, rr, cc) for v, (rr, cc) in zip(vols, geo)], reps=5)
+    library_ms = time_ms(indexing, reps=5)
+    log(f"{name} ms {ms:.4f} per lookup ({levels} launches)  plain {plain_ms:.4f}  indexing {library_ms:.4f}  "
+        f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB)")
+    return {
+        "name": name, "route": "cuda", "source": "tpuflow_torch/csrc/volume_patch.cu",
+        "replaces": replaces, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
     }
 
 
@@ -348,35 +587,37 @@ def profile_refine(model, enc) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy}
 
 
-def phase_end_to_end(kernels) -> dict:
-    from tpuflow_torch.config import ModelConfig
-    from tpuflow_torch.runtime.engine import FlowEngine
+def reset_launches(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
 
-    cfg = ModelConfig()
-    engine = FlowEngine(cfg, seed=SEED)          # device defaults to the card
-    log("weights:", engine.load_model(allow_random_init=True), "dtype", engine.model.dtype)
+
+def read_launches(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def phase_end_to_end(engine, kernels) -> dict:
+    cfg = engine.config
     frames = synthetic_clip(MAIN_FRAMES, MAIN_H, MAIN_W, SEED)
 
     stage_times(engine, frames)                  # warms cuDNN and the kernels
 
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches(kernels)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flows = engine.compute_flows_tiled_stride1(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = read_launches(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     if flows.shape != (MAIN_FRAMES, MAIN_H, MAIN_W, 2) or not np.isfinite(flows).all():
         raise AssertionError(f"bad flows: shape {flows.shape}, finite {np.isfinite(flows).all()}")
     windows = MAIN_FRAMES                        # one window (both tiles batched) per frame
-    expected = {
-        "dense_lookup": windows * 2 * cfg.decoder_depth,       # one launch per direction, all levels
-        "flash_attention_fwd": windows * cfg.decoder_depth,
-    }
+    expected = dict.fromkeys(kernels, 0)
+    expected["dense_lookup"] = windows * 2 * cfg.decoder_depth     # one launch per direction, all levels
+    expected["flash_attention_fwd"] = windows * cfg.decoder_depth
     log(f"end to end: {MAIN_FRAMES} frames of {MAIN_W}x{MAIN_H} in {wall:.3f} s = "
         f"{MAIN_FRAMES / wall:.4f} frames/s, peak {peak:.2f} GiB, launches {launches}, "
         f"|flow| mean {np.abs(flows).mean():.3f} max {np.abs(flows).max():.3f}")
@@ -390,51 +631,332 @@ def phase_end_to_end(kernels) -> dict:
             "stages_ms": stages, "refine_profile": prof, "launches": launches}
 
 
-def phase_parity() -> float:
+def timed_call(fn):
+    """(result, seconds) of fn() on the host clock, synchronized both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_untiled(engine, kernels) -> dict:
+    """One untiled 1920x1080 window (5 frames, the flow of frame 2) through
+    FlowEngine.compute_flow at the full configuration: feature grid 135x240 =
+    32 400 cells, above the 168x168 threshold, so 'auto' recomputes patches
+    with FlashCorr2 (K3: one launch per level, direction and iteration).
+    Then the same window with corr_impl='dense' (K1), which an 80 GB card can
+    still hold, to show what the policy costs or saves here."""
+    from tpuflow_torch.core.corr import DenseCorrPyramid, FlashCorr2
+
+    cfg, model = engine.config, engine.model
+    t = cfg.sequence_length
+    frames = synthetic_clip(t, MAIN_H, MAIN_W, SEED + 5)
+    out = {}
+    flows, probes = {}, {}
+    probe = probe_flow(engine.device, t - 2, MAIN_H // 8, MAIN_W // 8, SEED + 8)
+    for impl, cls in (("auto", FlashCorr2), ("dense", DenseCorrPyramid)):
+        model.corr_impl = impl
+        engine.compute_flow(frames, t // 2)                    # warm-up
+        reset_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        flow, wall = timed_call(lambda: engine.compute_flow(frames, t // 2))
+        launches = read_launches(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if flow.shape != (MAIN_H, MAIN_W, 2) or not np.isfinite(flow).all():
+            raise AssertionError(f"untiled {impl}: bad flow, shape {flow.shape}")
+        lookups = 2 * cfg.decoder_depth
+        expected = dict.fromkeys(kernels, 0)
+        expected["flash_attention_fwd"] = cfg.decoder_depth
+        if impl == "auto":
+            expected["flash2_patch_level"] = lookups * cfg.corr_levels
+        else:
+            expected["dense_lookup"] = lookups
+        if launches != expected:
+            raise AssertionError(f"untiled {impl}: kernel launches {launches}, expected {expected}")
+
+        # The same window in stages, through the engine's own steps.
+        with torch.inference_mode():
+            x = torch.from_numpy(frames[None]).to(engine.device).float() / 255.0
+            enc, t_enc = timed_call(lambda: model.encode(x))
+            if not (isinstance(enc.corr_fwd, cls) and isinstance(enc.corr_bwd, cls)):
+                raise AssertionError(f"untiled {impl}: correlation object is {type(enc.corr_fwd).__name__}")
+            _, t_ref = timed_call(lambda: model.refine(enc))
+            probes[impl] = model._lookup(enc.corr_fwd, probe)
+        log(f"untiled {MAIN_W}x{MAIN_H} corr_impl={impl!r} ({cls.__name__}): {wall:.3f} s per window = "
+            f"{1 / wall:.4f} windows/s, peak {peak:.2f} GiB, encode {t_enc * 1e3:.1f} ms, refine "
+            f"{t_ref * 1e3:.1f} ms, launches {launches}, |flow| mean {np.abs(flow).mean():.3f} "
+            f"max {np.abs(flow).max():.3f}")
+        out[impl] = {"wall_s": wall, "peak_gib": peak, "encode_ms": t_enc * 1e3, "refine_ms": t_ref * 1e3,
+                     "launches": launches}
+        if impl == "auto":
+            out[impl]["refine_profile"] = profile_refine(model, enc)
+        flows[impl] = flow
+        del enc
+        torch.cuda.empty_cache()
+    model.corr_impl = cfg.corr_impl
+
+    # bf16 volumes or patches, bf16 network, 12 iterations of feedback: the
+    # two formulations round differently (f32 against storage-dtype bilinear,
+    # features pooled in f32 against bf16), so they are held to the flow's
+    # scale, not to rounding.
+    out["auto_vs_dense"] = check_flows_agree("untiled 'auto' vs 'dense'", flows["auto"], flows["dense"])
+    out["auto_vs_dense"].update(check_lookups_agree(
+        "untiled 'auto' vs 'dense'", probes["auto"], probes["dense"], cfg.corr_levels))
+    return out
+
+
+def check_flows_agree(what: str, got: np.ndarray, ref: np.ndarray) -> dict:
+    """Two bf16 runs of the same window: mean and max |difference| as shares
+    of the mean |flow|, held to FLOW_MEAN_LIMIT and FLOW_MAX_LIMIT."""
+    diff = np.abs(got - ref)
+    scale = float(np.abs(ref).mean())
+    res = {"mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max()), "mean_abs_flow": scale}
+    log(f"{what}: |diff| mean {res['mean_abs_diff']:.4e} max {res['max_abs_diff']:.4e} px at mean |flow| "
+        f"{scale:.4f} px = {diff.mean() / scale:.4e} and {diff.max() / scale:.4e} of it "
+        f"(limits {FLOW_MEAN_LIMIT:g}, {FLOW_MAX_LIMIT:g})")
+    if not (diff.mean() <= FLOW_MEAN_LIMIT * scale and diff.max() <= FLOW_MAX_LIMIT * scale):
+        raise AssertionError(f"{what}: flows differ by {diff.mean()} px on average, {diff.max()} px at most, "
+                             f"at a mean |flow| of {scale} px")
+    return res
+
+
+def probe_flow(dev, b: int, h: int, w: int, seed: int) -> torch.Tensor:
+    """Flows of +-40 px [b, h, w, 2] f32 at which two correlation objects'
+    lookups are compared."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand((b, h, w, 2), generator=g, device=dev) * 80.0 - 40.0).contiguous()
+
+
+def check_lookups_agree(what: str, got: torch.Tensor, ref: torch.Tensor, levels: int) -> dict:
+    """Correlation features [B, h, w, levels * (2r+1)^2] of two formulations
+    at the same flows, level by level.  With random weights the network's
+    flow hardly depends on these features (a copy of the port with the
+    window's x and y axes swapped, and one with a level sampled at the wrong
+    scale, both stayed inside the flow limits above), so the formulations
+    are held to each other here and not only through the flow.
+    Both sides read bf16 entries that differ by roundings (features pooled in
+    f32 or bf16, bilinear in f32 or bf16: a few 2^-9 of the taps), so a
+    level's worst entry is held to LOOKUP_MAX_LIMIT of the level's largest
+    |feature| and its mean |difference| to LOOKUP_MEAN_LIMIT of its mean
+    |feature|; a misplaced tap differs by the feature's own size."""
+    g = got.reshape(-1, levels, got.shape[-1] // levels).float()
+    r = ref.reshape(-1, levels, ref.shape[-1] // levels).float()
+    worst_max = worst_mean = 0.0
+    for lvl in range(levels):
+        d = (g[:, lvl] - r[:, lvl]).abs()
+        worst_max = max(worst_max, (d.max() / r[:, lvl].abs().max()).item())
+        worst_mean = max(worst_mean, (d.mean() / r[:, lvl].abs().mean()).item())
+    log(f"{what}, lookup features: worst level's max |diff| = {worst_max:.4e} of max |feature| "
+        f"(limit {LOOKUP_MAX_LIMIT:g}), mean |diff| = {worst_mean:.4e} of mean |feature| "
+        f"(limit {LOOKUP_MEAN_LIMIT:g})")
+    if not (worst_max <= LOOKUP_MAX_LIMIT and worst_mean <= LOOKUP_MEAN_LIMIT):
+        raise AssertionError(f"{what}: lookup features differ, max {worst_max}, mean {worst_mean}")
+    return {"lookup_max_rel": worst_max, "lookup_mean_rel": worst_mean}
+
+
+def phase_strided(engine, kernels) -> dict:
+    """The multi-window entry points at full size: compute_flows_strided on
+    2 (T - 2) + 1 untiled 1920x1080 frames with window_batch=2 (three windows:
+    a batch of two, then one), and compute_flow_batch with two windows.  The
+    frame that is the middle interior of the second strided window must get
+    compute_flow's flow from either."""
+    cfg = engine.config
+    t = cfg.sequence_length
+    n = 2 * (t - 2) + 1
+    mid = (t - 3) + t // 2                      # window 1 starts at T-3
+    frames = synthetic_clip(n, MAIN_H, MAIN_W, SEED + 7)
+    batches = math.ceil(len(range(-1, n - 1, t - 2)) / 2)
+
+    engine.compute_flow_batch(frames, [mid, 1])                  # warms the two-window shapes
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    flows, wall = timed_call(lambda: engine.compute_flows_strided(frames, window_batch=2))
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if flows.shape != (n, MAIN_H, MAIN_W, 2) or not np.isfinite(flows).all():
+        raise AssertionError(f"strided: bad flows, shape {flows.shape}")
+    expected = dict.fromkeys(kernels, 0)
+    expected["flash_attention_fwd"] = batches * cfg.decoder_depth
+    expected["flash2_patch_level"] = batches * 2 * cfg.decoder_depth * cfg.corr_levels
+    if launches != expected:
+        raise AssertionError(f"strided: kernel launches {launches}, expected {expected}")
+    log(f"strided: {n} untiled frames of {MAIN_W}x{MAIN_H}, window_batch=2, in {wall:.3f} s = {n / wall:.4f} "
+        f"frames/s, peak {peak:.2f} GiB, launches {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    pair, pair_wall = timed_call(lambda: engine.compute_flow_batch(frames, [mid, 1]))
+    pair_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"compute_flow_batch, two windows: {pair_wall:.3f} s, peak {pair_peak:.2f} GiB")
+    single = engine.compute_flow(frames, mid)
+    out = {"frames": n, "wall_s": wall, "peak_gib": peak, "launches": launches,
+           "batch_of_two_wall_s": pair_wall, "batch_of_two_peak_gib": pair_peak}
+    # Another batch size may take another convolution algorithm, so these
+    # are held as two bf16 runs are, not bit for bit.
+    out["strided_vs_compute_flow"] = check_flows_agree(
+        f"strided frame {mid} vs compute_flow", flows[mid], single)
+    out["batch_vs_compute_flow"] = check_flows_agree(
+        f"compute_flow_batch window of frame {mid} vs compute_flow", pair[0], single)
+    return out
+
+
+def phase_formulations(engine, kernels) -> dict:
+    """corr_impl 'flash', 'band' and dense_lookup='patch' through MOFNet at
+    the tile shape (two 960x1080 tiles of a 5-frame window: 6 batch rows of
+    135x120), FORMULATION_DEPTH iterations, each against corr_impl='dense'
+    at the same depth from the same encoder features."""
+    cfg, model = engine.config, engine.model
+    from tpuflow_torch.config import TILE_SIZE
+
+    frames = synthetic_clip(cfg.sequence_length, MAIN_H, MAIN_W, SEED + 6)
+    tiles_info, groups = engine._tiling(MAIN_H, MAIN_W, TILE_SIZE)
+    idxs = next(iter(groups.values()))
+    lookups = 2 * FORMULATION_DEPTH
+    expected = {
+        "dense": {"dense_lookup": lookups},
+        "flash": {"flash_patch_level": lookups, "dense_lookup": lookups},   # level 0 + sidecar
+        "band": {"band_patch_level": lookups * cfg.corr_levels},
+        "patch": {"dense_patch_level": lookups * cfg.corr_levels},
+    }
+    out, flows, probes = {}, {}, {}
+    probe = probe_flow(engine.device, *TILE_QUERIES, SEED + 9)
+    model.decoder_depth = FORMULATION_DEPTH
+    try:
+        with torch.inference_mode():
+            per_frame = [engine._tile_features(f, tiles_info, idxs, 0) for f in frames]
+            feats = torch.stack([p[0] for p in per_frame], 1)
+            ctxs = torch.stack([p[1] for p in per_frame], 1)
+            for name in ("dense", "flash", "band", "patch"):
+                model.corr_impl = "dense" if name == "patch" else name
+                model.dense_lookup = "patch" if name == "patch" else "auto"
+                reset_launches(kernels)
+                (up_fwd, _), wall = timed_call(
+                    lambda: model.refine(model.encode_from_features(feats, ctxs)))
+                launches = read_launches(kernels)
+                want = dict.fromkeys(kernels, 0)
+                want["flash_attention_fwd"] = FORMULATION_DEPTH
+                want.update(expected[name])
+                if launches != want:
+                    raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
+                flows[name] = up_fwd.float()
+                if not torch.isfinite(flows[name]).all():
+                    raise AssertionError(f"{name}: non-finite flows")
+                out[name] = {"wall_ms": wall * 1e3, "launches": {k: v for k, v in launches.items() if v}}
+                # After the counters were read: one lookup at the probe flows.
+                probes[name] = model._lookup(model.encode_from_features(feats, ctxs).corr_fwd, probe)
+                torch.cuda.empty_cache()
+    finally:
+        model.decoder_depth = cfg.decoder_depth
+        model.corr_impl = cfg.corr_impl
+        model.dense_lookup = "auto"
+    for name in ("flash", "band", "patch"):
+        log(f"formulation {name!r} at [6,135,120], {FORMULATION_DEPTH} iterations: {out[name]['wall_ms']:.1f} ms "
+            f"(dense {out['dense']['wall_ms']:.1f} ms), launches {out[name]['launches']}")
+        # bf16 throughout; see phase_untiled.
+        out[name].update(check_flows_agree(f"formulation {name!r} vs 'dense'", flows[name].cpu().numpy(),
+                                           flows["dense"].cpu().numpy()))
+        out[name].update(check_lookups_agree(f"formulation {name!r} vs 'dense'", probes[name], probes["dense"],
+                                             cfg.corr_levels))
+    return out
+
+
+def phase_parity() -> dict:
     """The same weights and clip in f32 (volumes too) on the CPU and on the
-    card, full configuration, two 128x128 tiles per frame."""
+    card, full configuration: tiled (two 128x128 tiles per frame, dense
+    pyramids, K1), and one untiled window with the materialization threshold
+    lowered to 0 so that 'auto' takes the large-grid path (FlashCorr2, K3's
+    f32 kernel).  Returns each path's error relative to the flow scale."""
     from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.core.corr import FlashCorr2
     from tpuflow_torch.runtime.engine import FlowEngine
 
     n, h, w = PARITY_SHAPE
     frames = synthetic_clip(n, h, w, SEED + 2)
-    out = {}
+    out = {"tiled": {}, "untiled": {}}
     for dev in ("cpu", "cuda"):
         engine = FlowEngine(ModelConfig(), seed=SEED + 2, device=dev, dtype=torch.float32)
         engine.model.corr_dtype = torch.float32
         engine.load_model(allow_random_init=True)
-        out[dev] = engine.compute_flows_tiled_stride1(frames, tile_size=128)
-    scale = max(1.0, float(np.abs(out["cpu"]).max()))
-    err = float(np.abs(out["cuda"] - out["cpu"]).max())
-    log(f"parity f32 card vs cpu on {n}x{h}x{w}: max |diff| = {err:.3e}, flow scale {scale:.3f}, "
-        f"relative {err / scale:.3e}")
-    # f32 with TF32 off on both: convolution and matmul sums in another
-    # order, fed back through 12 iterations.
-    if not np.isfinite(out["cuda"]).all() or err / scale > 2e-3:
-        raise AssertionError(f"card and CPU disagree: {err} at flow scale {scale}")
-    return err / scale
+        out["tiled"][dev] = engine.compute_flows_tiled_stride1(frames, tile_size=128)
+        engine.model.materialize_threshold = 0
+        with torch.inference_mode():
+            enc = engine.model.encode(torch.zeros((1, 3, 64, 64, 3), device=engine.device))
+        if not isinstance(enc.corr_fwd, FlashCorr2):
+            raise AssertionError(f"parity: expected FlashCorr2 above the threshold, got {type(enc.corr_fwd).__name__}")
+        out["untiled"][dev] = engine.compute_flow(frames, n // 2)
+    rel = {}
+    for path, res in out.items():
+        scale = max(1.0, float(np.abs(res["cpu"]).max()))
+        err = float(np.abs(res["cuda"] - res["cpu"]).max())
+        rel[path] = err / scale
+        log(f"parity f32 card vs cpu, {path}, on {n}x{h}x{w}: max |diff| = {err:.3e}, flow scale {scale:.3f}, "
+            f"relative {err / scale:.3e}")
+        # f32 with TF32 off on both: convolution and matmul sums in another
+        # order, fed back through 12 iterations.
+        if not np.isfinite(res["cuda"]).all() or err / scale > 2e-3:
+            raise AssertionError(f"card and CPU disagree ({path}): {err} at flow scale {scale}")
+    return rel
 
 
 def main() -> int:
     smi = phase_environment()
     dev = torch.device("cuda", torch.cuda.current_device())
     try:
-        from tpuflow_torch.kernels.denselookup import dense_lookup
+        from tpuflow_torch.config import ModelConfig
+        from tpuflow_torch.kernels.bandlookup import band_patch_level
+        from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
         from tpuflow_torch.kernels.flashattn import flash_attention_fwd
+        from tpuflow_torch.kernels.flashcorr import flash_patch_level, flash_patch_level_plain
+        from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level, flash2_patch_level_plain
+        from tpuflow_torch.runtime.engine import FlowEngine
     except ImportError as exc:
         raise SystemExit(f"chip_smoke: run from the repository root ({exc})")
-    kernels = {"dense_lookup": dense_lookup, "flash_attention_fwd": flash_attention_fwd}
+    kernels = {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
+                                          dense_patch_level, flash_patch_level, band_patch_level)}
 
     phase_build()
-    rows = [check_dense_lookup(dev), check_flash_attention(dev)]
+    rows = [
+        check_dense_lookup(dev),
+        check_flash_attention(dev),
+        check_corr_patch(dev, flash2_patch_level, flash2_patch_level_plain, "tpuflow/kernels/flashcorr2.py:246"),
+        check_volume_patch(dev, "flat"),
+        # On the 'flash' path K5 sees level 0 of the tile shape only.
+        check_corr_patch(dev, flash_patch_level, flash_patch_level_plain, "tpuflow/kernels/flashcorr.py:157",
+                         also=(TILE_QUERIES, 1)),
+        check_volume_patch(dev, "band"),
+    ]
     torch.cuda.empty_cache()
-    e2e = phase_end_to_end(kernels)
+
+    engine = FlowEngine(ModelConfig(), seed=SEED)          # device defaults to the card
+    log("weights:", engine.load_model(allow_random_init=True), "dtype", engine.model.dtype)
+    e2e = phase_end_to_end(engine, kernels)
+    torch.cuda.empty_cache()
+    untiled = phase_untiled(engine, kernels)
+    torch.cuda.empty_cache()
+    strided = phase_strided(engine, kernels)
+    torch.cuda.empty_cache()
+    forms = phase_formulations(engine, kernels)
+    del engine
     torch.cuda.empty_cache()
     parity = phase_parity()
 
+    # Each kernel's launches on the path that runs it, counters zeroed just
+    # before that path and read just after.
+    path_launches = {
+        "dense_lookup": e2e["launches"], "flash_attention_fwd": e2e["launches"],
+        "flash2_patch_level": untiled["auto"]["launches"],
+        "dense_patch_level": forms["patch"]["launches"],
+        "flash_patch_level": forms["flash"]["launches"],
+        "band_patch_level": forms["band"]["launches"],
+    }
     for row in rows:
-        row["launches"] = e2e["launches"][row["name"]]
+        row["launches"] = path_launches[row["name"]].get(row["name"], 0)
+        if row["launches"] < 1:
+            raise AssertionError(f"{row['name']} was launched on no path")
+        if "at_untiled_window" in row:
+            row["at_untiled_window"]["launches"] = untiled["auto"]["launches"][row["name"]]
     log(json.dumps({"end_to_end": {k: v for k, v in e2e.items() if k != "launches"},
+                    "untiled": untiled, "strided": strided, "formulations": forms,
                     "parity_rel_err": parity}))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,0 +1,366 @@
+"""The port's correlation formulations against the JAX package's on the CPU.
+
+Every class of tpuflow_torch.core.corr is built from the same numpy
+features (drawn from a seed) as its JAX class and looked up with the same
+flows; the JAX Pallas kernels run in interpret mode, as the JAX package's
+own tests run them.  On the CPU the port's four patch wrappers run their
+plain PyTorch versions; the CUDA kernels are held against those on the card
+by chip_smoke.py.
+
+Tolerances: f32 1e-5 where both sides hold the same volume entries (level
+0, the exact-patch kernels), 2e-4 where pooled levels are summed in another
+order, bf16 three bf16 ulps (3 * 2^-7) of the output's scale: one ulp of
+difference in a stored entry and the storage-dtype bilinear of the epilogue.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tpuflow.core import corr as jcorr
+from tpuflow.kernels.bandlookup import band_patch_level as jax_band_patch_level
+from tpuflow.kernels.denselookup import dense_patch_level as jax_dense_patch_level
+from tpuflow.kernels.flashcorr import flash_patch_level as jax_flash_patch_level
+from tpuflow.kernels.flashcorr import pad_f2_level
+from tpuflow.kernels.flashcorr2 import flash2_patch_level as jax_flash2_patch_level
+from tpuflow.kernels.flashcorr2 import pack_f2_level
+
+from tpuflow_torch.core import corr as tcorr
+from tpuflow_torch.core.mofnet import MOFNet
+from tpuflow_torch.kernels.bandlookup import band_patch_level
+from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
+from tpuflow_torch.kernels.flashcorr import flash_patch_level
+from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level, flash2_patch_level_plain
+
+B, H, W, C, LEVELS = 2, 16, 24, 32, 3
+BF16_TOL = 3 * 2.0**-7
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@functools.lru_cache(maxsize=None)
+def features(dt: str, seed: int = 23):
+    """(f1, f2) as f32 numpy arrays already rounded to `dt`, so both sides
+    start from the same values."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        x = rng.standard_normal((B, H, W, C)).astype(np.float32)
+        out.append(np.asarray(jnp.asarray(x, JDT[dt]).astype(jnp.float32)))
+    return tuple(out)
+
+
+def flows(sigma: float) -> np.ndarray:
+    """N(0, 6): windows mostly in the plane; N(0, 30): most cross its border
+    or leave it."""
+    return np.random.default_rng(int(sigma)).normal(0, sigma, (B, H, W, 2)).astype(np.float32)
+
+
+def to_jax(x, dt):
+    return jnp.asarray(x, JDT[dt])
+
+
+def to_torch(x, dt):
+    return torch.from_numpy(np.array(x)).to(TDT[dt])
+
+
+# name -> (JAX constructor, port constructor); each takes (f1, f2).
+CLASSES = {
+    "gather": (lambda a, b: jcorr.CorrPyramid.build(a, b, LEVELS),
+               lambda a, b: tcorr.CorrPyramid.build(a, b, LEVELS)),
+    "direct": (lambda a, b: jcorr.OnTheFlyCorr.build(a, b, LEVELS),
+               lambda a, b: tcorr.OnTheFlyCorr.build(a, b, LEVELS)),
+    "flash2": (lambda a, b: jcorr.FlashCorr2.build(a, b, LEVELS),
+               lambda a, b: tcorr.FlashCorr2.build(a, b, LEVELS)),
+    "flash_all": (lambda a, b: jcorr.FlashCorr.build(a, b, LEVELS, flash_levels=LEVELS),
+                  lambda a, b: tcorr.FlashCorr.build(a, b, LEVELS, flash_levels=LEVELS)),
+    "flash_hybrid": (lambda a, b: jcorr.FlashCorr.build(a, b, LEVELS, flash_levels=1),
+                     lambda a, b: tcorr.FlashCorr.build(a, b, LEVELS, flash_levels=1)),
+    "band": (lambda a, b: jcorr.BandCorrPyramid.build(a, b, LEVELS),
+             lambda a, b: tcorr.BandCorrPyramid.build(a, b, LEVELS)),
+    "dense_patch": (lambda a, b: jcorr.DenseCorrPyramid.build(a, b, LEVELS),
+                    lambda a, b: tcorr.DenseCorrPyramid.build(a, b, LEVELS)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_lookup(name: str, dt: str, radius: int):
+    """One jitted build + lookup per (class, dtype, radius); both flow
+    draws reuse it."""
+    build = CLASSES[name][0]
+    kw = {"impl": "patch"} if name == "dense_patch" else {}
+    f1, f2 = (to_jax(x, dt) for x in features(dt))
+    return jax.jit(lambda flow: build(f1, f2).lookup(flow, radius, **kw))
+
+
+# Each (class, dtype, radius) is one JAX compile of a Pallas kernel in
+# interpret mode, so bf16 runs at the model's radius only.
+@pytest.mark.parametrize("sigma", [6.0, 30.0], ids=["inside", "border"])
+@pytest.mark.parametrize("dt,radius", [("f32", 3), ("f32", 4), ("bf16", 4)])
+@pytest.mark.parametrize("name", list(CLASSES))
+def test_class_matches_jax(name, dt, radius, sigma):
+    """Build + lookup of each port class against its JAX class."""
+    flow = flows(sigma)
+    ref = np.asarray(jax_lookup(name, dt, radius)(jnp.asarray(flow)))
+    f1, f2 = (to_torch(x, dt) for x in features(dt))
+    obj = CLASSES[name][1](f1, f2)
+    kw = {"impl": "patch"} if name == "dense_patch" else {}
+    got = obj.lookup(torch.from_numpy(flow), radius, **kw)
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    assert got.shape == ref.shape == (B, H, W, tcorr.corr_feature_dim(LEVELS, radius))
+    if dt == "bf16":
+        scale = max(1.0, float(np.abs(ref).max()))
+        assert np.abs(got - ref).max() <= BF16_TOL * scale
+        return
+    ncs = (2 * radius + 1) ** 2
+    # Level 0: the same entries on both sides, f32 rounding only.
+    np.testing.assert_allclose(got[..., :ncs], ref[..., :ncs], rtol=1e-5, atol=1e-5)
+    # Pooled levels: 2x2 means and 32-long dots summed in another order.
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("name", [n for n in CLASSES if n != "gather"])
+def test_port_formulations_agree_with_gather(name, radius):
+    """Within the port, f32: every formulation gives CorrPyramid's features
+    (volume pooling against feature pooling: summation order only)."""
+    f1, f2 = (to_torch(x, "f32") for x in features("f32"))
+    kw = {"impl": "patch"} if name == "dense_patch" else {}
+    for sigma in (6.0, 30.0):
+        flow = torch.from_numpy(flows(sigma))
+        ref = tcorr.CorrPyramid.build(f1, f2, LEVELS).lookup(flow, radius)
+        got = CLASSES[name][1](f1, f2).lookup(flow, radius, **kw)
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_all_pairs_and_pyramid_match_jax():
+    f1, f2 = features("f32")
+    ref = jcorr.all_pairs_correlation(jnp.asarray(f1), jnp.asarray(f2))
+    got = tcorr.all_pairs_correlation(to_torch(f1, "f32"), to_torch(f2, "f32"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    for a, b in zip(tcorr.build_corr_pyramid(got, LEVELS), jcorr.build_corr_pyramid(ref, LEVELS)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["auto", "patch"])
+def test_dense_lookup_impls_agree(impl):
+    """Both `dense_lookup` values read the same f32 volume the same way."""
+    f1, f2 = (to_torch(x, "f32") for x in features("f32"))
+    pyr = tcorr.DenseCorrPyramid.build(f1, f2, LEVELS)
+    flow = torch.from_numpy(flows(30.0))
+    ref = tcorr.CorrPyramid.build(f1, f2, LEVELS).lookup(flow, 4)
+    torch.testing.assert_close(pyr.lookup(flow, 4, impl=impl), ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla", "onehot"])
+def test_dense_lookup_rejects_unknown_impl(impl):
+    """The JAX package's backend names select nothing here: 'pallas' is the
+    kernel ('auto'), and the plain version is reached only by calling
+    `dense_lookup_plain`, never as an option of the model."""
+    f = torch.zeros(1, 4, 6, 8)
+    with pytest.raises(ValueError, match="dense_lookup"):
+        tcorr.DenseCorrPyramid.build(f, f, 2).lookup(torch.zeros(1, 4, 6, 2), 2, impl=impl)
+    with pytest.raises(ValueError, match="dense_lookup"):
+        MOFNet(dense_lookup=impl)
+
+
+@pytest.mark.parametrize("impl", ["auto", "patch"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_level_offset_matches_jax(dt, impl):
+    """A sidecar pyramid that holds levels 1.. only: stored level i is
+    sampled at scale 2^(i+1), in K1 and in the patch path."""
+    f1, f2 = features(dt)
+    joff = jcorr.DenseCorrPyramid.build(
+        to_jax(f1, dt), jcorr._avg_pool_features(to_jax(f2, dt)), LEVELS - 1)
+    joff = jcorr.DenseCorrPyramid(joff.pyramid, (B, H, W), (H, W), level_offset=1)
+    flow = flows(6.0)
+    ref = np.asarray(joff.lookup(jnp.asarray(flow), 3, impl="interpret" if impl == "auto" else "patch"))
+    sub = tcorr.DenseCorrPyramid.build(
+        to_torch(f1, dt), tcorr._avg_pool_features(to_torch(f2, dt)), LEVELS - 1)
+    got = tcorr.DenseCorrPyramid(sub.pyramid, level_offset=1).lookup(torch.from_numpy(flow), 3, impl=impl)
+    tol = 1e-5 if dt == "f32" else BF16_TOL * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=tol)
+    assert np.abs(ref).max() > 0.5            # the windows do read the planes
+
+
+MAKE_CORR_TYPES = {
+    "materialized": "DenseCorrPyramid", "dense": "DenseCorrPyramid", "gather": "CorrPyramid",
+    "direct": "OnTheFlyCorr", "flash": "FlashCorr", "flash2": "FlashCorr2",
+    "band": "BandCorrPyramid", "auto": "DenseCorrPyramid",
+}
+
+
+@pytest.mark.parametrize("impl", list(MAKE_CORR_TYPES))
+def test_make_corr_dispatch(impl):
+    """Every `impl` of the JAX make_corr is accepted and gives the class of
+    the same name."""
+    f = np.zeros((1, 4, 6, 8), np.float32)
+    got = tcorr.make_corr(torch.from_numpy(f), torch.from_numpy(f), 2, impl=impl)
+    ref = jcorr.make_corr(jnp.asarray(f), jnp.asarray(f), 2, impl=impl)
+    assert type(got).__name__ == type(ref).__name__ == MAKE_CORR_TYPES[impl]
+
+
+def test_make_corr_auto_threshold():
+    """'auto' materializes at or below the threshold and recomputes with
+    FlashCorr2 above it, on every device (the JAX package detours to
+    OnTheFlyCorr off the TPU; that is a backend switch, not semantics)."""
+    f = torch.zeros(1, 4, 6, 8)
+    assert isinstance(tcorr.make_corr(f, f, 2, materialize_threshold=24), tcorr.DenseCorrPyramid)
+    assert isinstance(tcorr.make_corr(f, f, 2, materialize_threshold=23), tcorr.FlashCorr2)
+    assert tcorr.MATERIALIZE_THRESHOLD == 168 * 168
+    big = torch.zeros(1, 169, 168, 2)
+    assert isinstance(tcorr.make_corr(big, big, 2), tcorr.FlashCorr2)
+    edge = torch.zeros(1, 168, 168, 2)
+    assert isinstance(tcorr.make_corr(edge, edge, 1), tcorr.DenseCorrPyramid)
+
+
+def test_flash_auto_split_follows_dense_budget():
+    f = torch.zeros(1, 8, 8, 4)
+    assert tcorr.FlashCorr.build(f, f, 3).dense.level_offset == 1
+    assert len(tcorr.FlashCorr.build(f, f, 3).flash_pyr) == 1
+    all_flash = tcorr.FlashCorr.build(f, f, 3, dense_budget=0)
+    assert all_flash.dense is None and len(all_flash.flash_pyr) == 3
+
+
+# ---- the four patch wrappers against their JAX kernels ------------------
+
+
+def patch_indices(level: int, radius: int, sigma: float = 12.0):
+    """Clamped rr, cc [B, H*W, side] of one level, from the JAX geometry."""
+    flow = jnp.asarray(flows(sigma))
+    ys, xs = jnp.mgrid[0:H, 0:W]
+    bx = (xs.astype(jnp.float32)[None] + flow[..., 0]).reshape(B, H * W)
+    by = (ys.astype(jnp.float32)[None] + flow[..., 1]).reshape(B, H * W)
+    lh, lw = jcorr.pyramid_level_dims(H, W, level)
+    idx = jcorr._radius_patch_indices(bx, by, level, lh, lw, radius)
+    return idx.rr, idx.cc, lh, lw
+
+
+def flat_level(pyr, lvl: int) -> np.ndarray:
+    """One grouped JAX level [N, nh_a, gw_a] -> flat [N, lh, lw] f32 numpy."""
+    lh, lw = jcorr.pyramid_level_dims(pyr.h2, pyr.w2, lvl)
+    g = pyr.groups[lvl]
+    nh = -(-lh // g)
+    v = np.asarray(pyr.pyramid[lvl].astype(jnp.float32))[:, :nh, : g * lw]
+    return np.ascontiguousarray(v.reshape(v.shape[0], nh * g, lw)[:, :lh])
+
+
+def as_int32(x):
+    return torch.from_numpy(np.asarray(x)).to(torch.int32)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("which", ["flash2", "flash"])
+@pytest.mark.parametrize("level,radius", [(0, 4), (1, 3)])
+def test_corr_patch_wrappers_match_jax_kernels(which, dt, level, radius):
+    f1, f2 = features(dt)
+    rr, cc, lh, lw = patch_indices(level, radius)
+    jf2 = to_jax(f2, dt)
+    for _ in range(level):
+        jf2 = jcorr._avg_pool_features(jf2)
+    side = 2 * radius + 2
+    jf1 = to_jax(f1, dt).reshape(B, H * W, C)
+    if which == "flash2":
+        ref = jax_flash2_patch_level(jf1, pack_f2_level(jf2), rr, cc, lh=lh, lw=lw, side=side, interpret=True)
+        fn = flash2_patch_level
+    else:
+        ref = jax_flash_patch_level(jf1, pad_f2_level(jf2), rr, cc, lh=lh, lw=lw, side=side, interpret=True)
+        fn = flash_patch_level
+    tf2 = to_torch(np.asarray(jf2.astype(jnp.float32)), dt)
+    got = fn(to_torch(f1, dt).reshape(B, H * W, C), tf2, as_int32(rr), as_int32(cc))
+    assert got.dtype == TDT[dt] and tuple(got.shape) == (B, H * W, side, side)
+    ref = np.asarray(ref.astype(jnp.float32))
+    # f32 sums of 32 products in another order; bf16: the same f32 sum
+    # rounded once, one ulp apart where it sits on a rounding boundary.
+    tol = 1e-5 if dt == "f32" else 2.0**-7 * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("level,radius", [(0, 4), (2, 3)])
+def test_dense_patch_level_matches_jax_kernel(dt, level, radius):
+    """Exact volume entries: bitwise equal on the same volume values."""
+    f1, f2 = features(dt)
+    pyr = jcorr.DenseCorrPyramid.build(to_jax(f1, dt), to_jax(f2, dt), LEVELS)
+    rr, cc, lh, lw = patch_indices(level, radius)
+    side = 2 * radius + 2
+    ref = jax_dense_patch_level(pyr.pyramid[level], rr, cc, lh=lh, lw=lw, g=pyr.groups[level],
+                                side=side, interpret=True)
+    vol = to_torch(flat_level(pyr, level), dt)
+    got = dense_patch_level(vol, as_int32(rr), as_int32(cc))
+    assert got.dtype == TDT[dt]
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("level,radius", [(0, 4), (2, 3)])
+def test_band_patch_level_matches_jax_kernel(dt, level, radius):
+    """Exact volume entries from the plane-row-outer layout: bitwise equal
+    on the JAX pyramid's values with its row, query and lane padding cut."""
+    f1, f2 = features(dt)
+    pyr = jcorr.BandCorrPyramid.build(to_jax(f1, dt), to_jax(f2, dt), LEVELS)
+    rr, cc, lh, lw = patch_indices(level, radius)
+    side = 2 * radius + 2
+    jvol = pyr.pyramid[level]
+    ref = jax_band_patch_level(jvol, rr, cc, lh=lh, lw=lw, side=side, interpret=True)
+    vol = to_torch(np.asarray(jvol.astype(jnp.float32))[:, :lh, : H * W, :lw], dt).contiguous()
+    got = band_patch_level(vol, as_int32(rr), as_int32(cc))
+    assert got.dtype == TDT[dt]
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_band_build_matches_jax(dt):
+    f1, f2 = features(dt)
+    ref = jcorr.BandCorrPyramid.build(to_jax(f1, dt), to_jax(f2, dt), LEVELS)
+    got = tcorr.BandCorrPyramid.build(to_torch(f1, dt), to_torch(f2, dt), LEVELS)
+    for lvl, (jvol, vol) in enumerate(zip(ref.pyramid, got.pyramid)):
+        lh, lw = jcorr.pyramid_level_dims(H, W, lvl)
+        assert tuple(vol.shape) == (B, lh, H * W, lw) and vol.dtype == TDT[dt]
+        cut = np.asarray(jvol.astype(jnp.float32))[:, :lh, : H * W, :lw]
+        tol = 1e-5 if dt == "f32" else 2.0**-7
+        np.testing.assert_allclose(vol.float().numpy(), cut, rtol=tol, atol=tol)
+
+
+def test_corr_patch_plain_chunks_agree():
+    """Query chunking (a ragged last chunk included) changes no value."""
+    g = torch.Generator().manual_seed(0)
+    f1 = torch.randn(2, 37, 16, generator=g)
+    f2 = torch.randn(2, 5, 7, 16, generator=g)
+    rr = torch.randint(0, 5, (2, 37, 8), generator=g, dtype=torch.int32)
+    cc = torch.randint(0, 7, (2, 37, 8), generator=g, dtype=torch.int32)
+    whole = flash2_patch_level_plain(f1, f2, rr, cc)
+    small = flash2_patch_level_plain(f1, f2, rr, cc, budget=2 * 64 * 16 * 4 * 5)   # 5-query chunks
+    torch.testing.assert_close(small, whole, rtol=0, atol=0)
+    want = torch.einsum("bqc,bqijc->bqij", f1, f2[torch.arange(2)[:, None, None, None],
+                        rr.long()[:, :, :, None], cc.long()[:, :, None, :]]) / 4.0
+    torch.testing.assert_close(whole, want, rtol=1e-5, atol=1e-5)
+
+
+def test_patch_wrappers_reject_bad_inputs():
+    f1, f2 = torch.zeros(1, 6, 8), torch.zeros(1, 2, 3, 8)
+    rr = cc = torch.zeros(1, 6, 4, dtype=torch.int32)
+    for fn in (flash2_patch_level, flash_patch_level):
+        with pytest.raises(ValueError):
+            fn(f1, f2, rr.long(), cc.long())                       # indices not int32
+        with pytest.raises(ValueError):
+            fn(f1, f2.to(torch.bfloat16), rr, cc)                  # mixed dtypes
+        with pytest.raises(ValueError):
+            fn(f1, torch.zeros(1, 2, 3, 4), rr, cc)                # C mismatch
+        with pytest.raises(ValueError):
+            fn(f1, f2, torch.zeros(1, 6, 17, dtype=torch.int32), torch.zeros(1, 6, 17, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        dense_patch_level(torch.zeros(5, 2, 3), rr, cc)            # N != B*Nq
+    with pytest.raises(ValueError):
+        dense_patch_level(torch.zeros(6, 2, 3, dtype=torch.float16), rr, cc)
+    with pytest.raises(ValueError):
+        band_patch_level(torch.zeros(1, 2, 5, 3), rr, cc)          # Nq mismatch
+    with pytest.raises(ValueError):
+        dense_lookup([torch.zeros(12, 3, 4)], torch.zeros(1, 3, 4, 2), 1, level_offset=-1)

@@ -94,14 +94,16 @@ def test_pyramid_build_matches_jax(dt):
 
 
 def test_make_corr_routes_and_refuses():
+    """'auto' materializes small grids and recomputes above 168x168; no
+    formulation of the JAX package is refused any more."""
+    from tpuflow_torch.core.corr import BandCorrPyramid, FlashCorr2
+
     f = torch.zeros(1, 4, 6, 8)
     assert isinstance(make_corr(f, f, 2), DenseCorrPyramid)
     big = torch.zeros(1, 169, 169, 8)
-    with pytest.raises(NotImplementedError, match="FlashCorr2"):
-        make_corr(big, big, 4)
-    for impl in ("dense", "band"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_corr(f, f, 2, impl=impl)
+    assert isinstance(make_corr(big, big, 4), FlashCorr2)
+    assert isinstance(make_corr(f, f, 2, impl="dense"), DenseCorrPyramid)
+    assert isinstance(make_corr(f, f, 2, impl="band"), BandCorrPyramid)
 
 
 @pytest.mark.parametrize("b,h,w", [(2, 9, 11), (1, 6, 10)])

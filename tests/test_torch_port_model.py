@@ -293,3 +293,132 @@ def test_bf16_path_is_as_close_to_f32_as_jax_bf16(models, clip_and_jax_flows):
     port_drift = np.abs(tflow.numpy() - ref).mean()
     assert 0 < jax_drift < 1.0
     assert port_drift <= 1.5 * jax_drift, (port_drift, jax_drift)
+
+
+# ---- every correlation formulation inside the model ----------------------
+
+
+@pytest.mark.parametrize(
+    "corr_impl,dense_lookup",
+    [("flash2", "auto"), ("flash", "auto"), ("band", "auto"), ("direct", "auto"),
+     ("gather", "auto"), ("auto", "patch")],
+    ids=["flash2", "flash", "band", "direct", "gather", "dense-patch"],
+)
+def test_mofnet_corr_impls_match_flax(models, clip_and_jax_flows, corr_impl, dense_lookup):
+    """MOFNet under each `corr_impl` / `dense_lookup` against the JAX MOFNet
+    under the same setting (its Pallas kernels in interpret mode), f32
+    volumes on both sides."""
+    jmodel, params, flat, _ = models
+    frames, dense_f, _ = clip_and_jax_flows
+    jm = jmodel.clone(corr_impl=corr_impl, dense_lookup="xla" if dense_lookup == "auto" else dense_lookup)
+    jf, jb = jax.jit(jm.apply)(params, jnp.asarray(frames))
+    port = MOFNet(corr_dtype=torch.float32, corr_impl=corr_impl, dense_lookup=dense_lookup, **CFG).eval()
+    port.load_state_dict(state_dict_from_jax(flat), strict=True)
+    with torch.no_grad():
+        tf, tb = port(torch.from_numpy(frames))
+    # As test_mofnet_forward_matches_flax: f32 on both sides, two iterations
+    # of feedback through the lookup amplify summation-order differences.
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=2e-3, atol=2e-3)
+    # And every formulation computes the dense path's flows.
+    np.testing.assert_allclose(tf.numpy(), dense_f, rtol=2e-3, atol=2e-3)
+
+
+def test_mofnet_rejects_unknown_dense_lookup():
+    with pytest.raises(ValueError, match="dense_lookup"):
+        MOFNet(dense_lookup="onehot", **CFG)
+
+
+def test_encoder_frame_chunks_change_nothing(models, monkeypatch):
+    """Encoders run over frames a bounded number of pixels at a time; the
+    features are those of one call."""
+    from tpuflow_torch.core import mofnet as port_mofnet
+
+    port = models[3]
+    frames = torch.from_numpy(np.random.default_rng(6).random((3, H, W, 3), np.float32))
+    with torch.no_grad():
+        whole = port.frame_features(frames)
+        monkeypatch.setattr(port_mofnet, "ENCODER_CHUNK_PIXELS", H * W)   # one frame per call
+        chunked = port.frame_features(frames)
+    for a, b in zip(whole, chunked):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ---- the untiled engine entry points -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def untiled_engines(models):
+    """JAX engine with corr_impl='flash2' and the port's engine with 'auto'
+    and the threshold lowered to 0, so that both run the large-grid
+    formulation (FlashCorr2) untiled on 7 frames of 70x86 (padded to 72x88)."""
+    from tpuflow.config import ModelConfig as JaxModelConfig
+    from tpuflow.runtime.engine import FlowEngine as JaxFlowEngine
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.core.corr import FlashCorr2
+    from tpuflow_torch.runtime.engine import FlowEngine
+
+    _, params, flat, _ = models
+    frames = (np.random.default_rng(5).random((7, H - 2, W - 2, 3)) * 255).astype(np.uint8)
+    jeng = JaxFlowEngine(JaxModelConfig(corr_impl="flash2", **CFG), params=params, dtype=jnp.float32)
+    jeng.model = jeng.model.clone(corr_dtype=jnp.float32)
+    jeng.load_model()
+    eng = FlowEngine(ModelConfig(**CFG), params=state_dict_from_jax(flat), device="cpu")
+    eng.model.corr_dtype = torch.float32
+    eng.model.materialize_threshold = 0
+    eng.load_model()
+    with torch.no_grad():
+        enc = eng.model.encode(torch.zeros(1, 5, 16, 16, 3))
+    assert isinstance(enc.corr_fwd, FlashCorr2) and isinstance(enc.corr_bwd, FlashCorr2)
+    return frames, jeng, eng
+
+
+def test_compute_flow_matches_jax(untiled_engines):
+    frames, jeng, eng = untiled_engines
+    got = eng.compute_flow(frames, 3)
+    assert got.shape == (H - 2, W - 2, 2) and got.dtype == np.float32
+    np.testing.assert_allclose(got, jeng.compute_flow(frames, 3), rtol=2e-3, atol=2e-3)
+
+
+def test_compute_flow_batch_matches_jax(untiled_engines):
+    """Two windows on the batch axis, both clipped at the clip's ends."""
+    frames, jeng, eng = untiled_engines
+    got = eng.compute_flow_batch(frames, [0, 6])
+    assert got.shape == (2, H - 2, W - 2, 2) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jeng.compute_flow_batch(frames, [0, 6]), rtol=2e-3, atol=2e-3)
+    # A window's flow does not depend on its neighbours in the batch, up to
+    # the summation order another batch size gives convolutions and matmuls.
+    np.testing.assert_allclose(eng.compute_flow(frames, 6), got[1], rtol=2e-3, atol=2e-3)
+
+
+def test_compute_flows_strided_matches_jax(untiled_engines):
+    """Windows start at -1, 2, 5: two batches of two, the second filled with
+    a window whose flows are dropped.  Frames 1 and 4 are the middle
+    interiors of their windows, and there the strided flow is the stride-1
+    flow of that frame: the same window, the same interior."""
+    frames, jeng, eng = untiled_engines
+    got = eng.compute_flows_strided(frames, window_batch=2)
+    assert got.shape == (7, H - 2, W - 2, 2) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jeng.compute_flows_strided(frames, window_batch=2), rtol=2e-3, atol=2e-3)
+    for i in (1, 4):
+        np.testing.assert_allclose(got[i], eng.compute_flow(frames, i), rtol=2e-3, atol=2e-3)
+    # Off the middle the window differs, and so does the flow.
+    assert np.abs(got[3] - eng.compute_flow(frames, 3)).max() > 0.1
+
+
+def test_untiled_and_single_tile_agree(untiled_engines):
+    """A frame that fits one tile runs in tile mode as one tile: the same
+    window through the same model."""
+    frames, _, eng = untiled_engines
+    np.testing.assert_allclose(
+        eng.compute_flow_tiled(frames, 2, tile_size=96), eng.compute_flow(frames, 2), rtol=2e-3, atol=2e-3
+    )
+
+
+def test_get_model_info_matches_jax(untiled_engines):
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.runtime.engine import FlowEngine
+
+    _, jeng, eng = untiled_engines
+    assert eng.get_model_info() == jeng.get_model_info()
+    assert FlowEngine(ModelConfig(**CFG), device="cpu").get_model_info() == {"status": "not_loaded"}

@@ -140,6 +140,13 @@ def test_unported_paths_name_their_slice():
         FlowEngine(ModelConfig(encoder="cnn", **TINY), device="cpu")
 
 
+def test_memflow_names_its_slice():
+    """The untiled entry points are VideoFlow's; a MemFlow engine is refused
+    at construction with the slice that will bring it."""
+    with pytest.raises(NotImplementedError, match="MemFlow"):
+        FlowEngine(ModelConfig(model="memflow", **TINY), device="cpu")
+
+
 def test_port_imports_no_jax():
     """A fresh interpreter that imports the port and runs one CPU forward
     through the engine has neither jax nor tpuflow in sys.modules."""
@@ -152,6 +159,8 @@ def test_port_imports_no_jax():
         "frames = np.random.default_rng(0).integers(0, 256, (3, 24, 40, 3), dtype=np.uint8)\n"
         "out = eng.compute_flows_tiled_stride1(frames, tile_size=24)\n"
         "assert out.shape == (3, 24, 40, 2) and np.isfinite(out).all()\n"
+        "eng.model.materialize_threshold = 0\n"
+        "assert eng.compute_flow(frames, 1).shape == (24, 40, 2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpuflow'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -46,7 +46,9 @@ class ModelConfig:
     memory_capacity: int = 8
     use_rope: bool = False
 
-    # Correlation implementation (core/corr.py make_corr).
+    # Correlation implementation (core/corr.py make_corr): 'auto' |
+    # 'materialized' | 'dense' | 'gather' | 'direct' | 'flash' | 'flash2' |
+    # 'band'.
     corr_impl: str = "auto"
 
     def __post_init__(self):

@@ -6,8 +6,10 @@ flows_bwd), each [B, T-2, H, W, 2], for the interior frames.
 
 - fnet / cnet: Twins-SVT to 1/8 resolution (core/encoders.py).
 - att: GMA q/k over the context, once per window (core/gma.py).
-- Two dense correlation pyramids per window, interior frame against its
-  next and its previous frame (core/corr.py; lookup = kernel K1).
+- Two correlation objects per window, interior frame against its next and
+  its previous frame (core/corr.py `make_corr`: a dense pyramid with kernel
+  K1 up to 168x168 feature grids, FlashCorr2 with kernel K3 above; other
+  formulations by `corr_impl`).
 - `refine`: decoder_depth steps of the joint bidirectional SK update
   (core/sk.py; GMA apply = kernel K2) with the 48-channel motion hidden
   state shifted across interior frames, then the convex 8x upsample with
@@ -20,12 +22,12 @@ read on this path.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
 
-from .corr import DenseCorrPyramid, make_corr
+from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
 from .gma import Attention
 from .sk import SKUpdateBlockMOF
@@ -33,15 +35,22 @@ from .update import upsample_flow_convex
 
 
 class MOFEncoded(NamedTuple):
-    """What `refine` consumes: context, GMA q/k and both pyramids."""
+    """What `refine` consumes: context, GMA q/k and both correlation
+    objects (anything with `.lookup(flow, radius)`)."""
 
     inp: torch.Tensor        # [B*N, h, w, 128] context
     net: torch.Tensor        # [B*N, h, w, 128] initial hidden state
     q: torch.Tensor          # [B*N, h, w, 128]
     k: torch.Tensor          # [B*N, h, w, 128]
-    corr_fwd: DenseCorrPyramid
-    corr_bwd: DenseCorrPyramid
+    corr_fwd: Any
+    corr_bwd: Any
     batch: int               # B: windows in the batch
+
+
+# Frames per encoder call: as many as fit this many pixels (one 1920x1080
+# frame, two 960x1080 tiles).  The Twins global attention materializes f32
+# scores of (H/4 * W/4) queries x (H/32 * W/32) keys per head and frame.
+ENCODER_CHUNK_PIXELS = 2**21
 
 
 class MOFNet(nn.Module):
@@ -56,14 +65,24 @@ class MOFNet(nn.Module):
         encoder: str = "twins",
         corr_dtype: torch.dtype = torch.bfloat16,
         corr_impl: str = "auto",
+        dense_lookup: str = "auto",
     ):
+        """`corr_impl`: see core/corr.py `make_corr`.  `dense_lookup`: the
+        lookup of a DenseCorrPyramid, 'auto' (kernel K1) or 'patch' (kernel
+        K4 + epilogue)."""
         super().__init__()
+        if dense_lookup not in DENSE_LOOKUP_IMPLS:
+            raise ValueError(f"dense_lookup {dense_lookup!r}: expected one of {DENSE_LOOKUP_IMPLS}")
         self.corr_levels, self.corr_radius = corr_levels, corr_radius
         self.decoder_depth = decoder_depth
         self.feature_dim = feature_dim
         self.hidden_dim, self.context_dim = hidden_dim, context_dim
         self.corr_dtype = corr_dtype  # cost-volume storage dtype
         self.corr_impl = corr_impl
+        self.dense_lookup = dense_lookup
+        # Largest feature grid 'auto' materializes (make_corr); parity runs
+        # lower it to reach the large-grid formulation on a small frame.
+        self.materialize_threshold = MATERIALIZE_THRESHOLD
         self.fnet = make_encoder(encoder, feature_dim)
         self.cnet = make_encoder(encoder, hidden_dim + context_dim)
         self.att = Attention(dim=context_dim, dim_head=context_dim)
@@ -73,12 +92,21 @@ class MOFNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.att.to_qk.weight.dtype
 
+    @staticmethod
+    def _encode_chunked(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """`net` over frames [M, H, W, 3], ENCODER_CHUNK_PIXELS at a time
+        (both encoders are per frame, so chunking changes no value)."""
+        per = max(1, ENCODER_CHUNK_PIXELS // (x.shape[1] * x.shape[2]))
+        if x.shape[0] <= per:
+            return net(x)
+        return torch.cat([net(x[i : i + per]) for i in range(0, x.shape[0], per)])
+
     def frame_features(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, H, W, 3] in [0, 1] -> (fnet features [M, H/8, W/8, 256], cnet
         context [M, H/8, W/8, 256]).  Both encoders are per frame, so the
         stride-1 engine computes them once per frame."""
         x = (2.0 * frames - 1.0).to(self.dtype)
-        return self.fnet(x), self.cnet(x)
+        return self._encode_chunked(self.fnet, x), self._encode_chunked(self.cnet, x)
 
     def prepare_context(self, ctx: torch.Tensor):
         """Per-frame context [M, h, w, 256] -> (net, inp, q, k)."""
@@ -96,8 +124,9 @@ class MOFNet(nn.Module):
         center = feats[:, 1 : t - 1].reshape(b * n, h8, w8, -1).to(self.corr_dtype)
         fwd_tgt = feats[:, 2:t].reshape(b * n, h8, w8, -1).to(self.corr_dtype)
         bwd_tgt = feats[:, 0 : t - 2].reshape(b * n, h8, w8, -1).to(self.corr_dtype)
-        corr_fwd = make_corr(center, fwd_tgt, self.corr_levels, self.corr_impl)
-        corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, self.corr_impl)
+        kw = dict(impl=self.corr_impl, materialize_threshold=self.materialize_threshold)
+        corr_fwd = make_corr(center, fwd_tgt, self.corr_levels, **kw)
+        corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, **kw)
         return MOFEncoded(inp, net, q, k, corr_fwd, corr_bwd, b)
 
     def encode(self, frames: torch.Tensor) -> MOFEncoded:
@@ -108,25 +137,29 @@ class MOFNet(nn.Module):
             raise ValueError("MOFNet needs at least 3 frames")
         n = t - 2
         x = (2.0 * frames - 1.0).to(self.dtype)
-        feats = self.fnet(x.reshape(b * t, h, w, 3))
+        feats = self._encode_chunked(self.fnet, x.reshape(b * t, h, w, 3))
         feats = feats.reshape(b, t, *feats.shape[1:])
-        ctx_i = self.cnet(x[:, 1 : t - 1].reshape(b * n, h, w, 3))
+        ctx_i = self._encode_chunked(self.cnet, x[:, 1 : t - 1].reshape(b * n, h, w, 3))
         ctx_i = ctx_i.reshape(b, n, *ctx_i.shape[1:])
         pad = torch.zeros_like(ctx_i[:, :1])
         return self.encode_from_features(feats, torch.cat([pad, ctx_i, pad], dim=1))
+
+    def _lookup(self, corr, flow: torch.Tensor) -> torch.Tensor:
+        if isinstance(corr, DenseCorrPyramid):
+            return corr.lookup(flow, self.corr_radius, impl=self.dense_lookup)
+        return corr.lookup(flow, self.corr_radius)
 
     def refine(self, enc: MOFEncoded) -> Tuple[torch.Tensor, torch.Tensor]:
         """Iterative refinement + convex upsample -> ([B, N, H, W, 2],) x 2."""
         bn, h8, w8, _ = enc.net.shape
         b = enc.batch
         n = bn // b
-        r = self.corr_radius
         flow = torch.zeros((bn, h8, w8, 4), dtype=torch.float32, device=enc.net.device)
         net = enc.net
         mhs = torch.zeros((b, n, h8, w8, 48), dtype=self.dtype, device=enc.net.device)
         for _ in range(self.decoder_depth):
-            cf = enc.corr_fwd.lookup(flow[..., 0:2], r).to(self.dtype)
-            cb = enc.corr_bwd.lookup(flow[..., 2:4], r).to(self.dtype)
+            cf = self._lookup(enc.corr_fwd, flow[..., 0:2]).to(self.dtype)
+            cb = self._lookup(enc.corr_bwd, flow[..., 2:4]).to(self.dtype)
             corr = torch.cat([cf, cb], dim=-1)
             net, mhs, delta = self.update_block.step(net, mhs, enc.inp, corr, flow, enc.q, enc.k, b)
             flow = flow + delta.float()

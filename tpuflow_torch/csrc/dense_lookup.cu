@@ -5,13 +5,15 @@
 // .lookup (tpuflow/core/corr.py:597-606, _lookup_kernel :704-786) runs once
 // per level and direction on every refinement iteration.
 //
-// What it computes, for every query n = (b, y, x) and level l with flat
-// volume V_l [N, lh, lw] (bf16 or f32), flow (fx, fy) and radius r:
-//   cx = (x + fx) / 2^l, x0 = floor(cx), wx = cx - x0   (same for y)
+// What it computes, for every query n = (b, y, x) and stored level l with
+// flat volume V_l [N, lh, lw] (bf16 or f32), flow (fx, fy) and radius r:
+//   cx = (x + fx) / 2^(l+o), x0 = floor(cx), wx = cx - x0   (same for y)
 //   p[j][i] = V_l[n, y0 - r + i, x0 - r + j], 0 outside [0,lh) x [0,lw)
 //   t       = p[j][i] + wx * (p[j+1][i] - p[j][i])         (f32)
 //   s       = t[j][i] + wy * (t[j][i+1] - t[j][i])         (f32)
 //   out[n, l*(2r+1)^2 + j*(2r+1) + i] = s                  (x-major order)
+// where o = level_offset is 0 for a whole pyramid and k for one that holds
+// only the levels from k on (the dense sidecar of FlashCorr).
 // which is the fused TPU kernel's two-stage f32 bilinear.  The plain
 // version is tpuflow_torch/kernels/denselookup.py:dense_lookup_plain; the
 // rounding steps are explicit (__fmul_rn/__fadd_rn) so the kernel does
@@ -62,7 +64,7 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float w) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) dense_lookup_kernel(
     Levels levels, const float* __restrict__ flow, float* __restrict__ out,
-    int64_t n_query, int h, int w, int radius, int n_levels) {
+    int64_t n_query, int h, int w, int radius, int n_levels, int level_offset) {
   const int ns = 2 * radius + 1;
   const int ncs = ns * ns;
   const int lvl = blockIdx.y;
@@ -76,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) dense_lookup_kernel(
   const int pix = (int)(q % ((int64_t)h * w));
   const int y = pix / w;
   const int x = pix - y * w;
-  const float scale = 1.0f / (float)(1 << lvl);  // exact: a power of two
+  const float scale = 1.0f / (float)(1 << (lvl + level_offset));  // exact: a power of two
   const float cx = __fmul_rn(__fadd_rn((float)x, flow[2 * q]), scale);
   const float cy = __fmul_rn(__fadd_rn((float)y, flow[2 * q + 1]), scale);
   const float x0 = floorf(cx);
@@ -102,13 +104,15 @@ __global__ void __launch_bounds__(kThreads) dense_lookup_kernel(
 
 // dtype: 0 = bf16 volumes, 1 = f32 volumes.  vols/lh/lw: host arrays of
 // n_levels entries.  flow: [n_query, 2] f32; out: [n_query, n_levels *
-// (2r+1)^2] f32.  Returns the launch's cudaError_t.
+// (2r+1)^2] f32.  Stored level l is sampled at scale 2^(l + level_offset).
+// Returns the launch's cudaError_t.
 extern "C" int tf_dense_lookup(int dtype, const void* const* vols, const int* lh,
                                const int* lw, int n_levels, const float* flow,
                                float* out, long long n_query, int h, int w,
-                               int radius, void* stream) {
+                               int radius, int level_offset, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_query < 1 || h < 1 || w < 1 ||
-      radius < 0 || (dtype != 0 && dtype != 1))
+      radius < 0 || level_offset < 0 || level_offset + n_levels > 30 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Levels levels;
   for (int l = 0; l < n_levels; ++l) {
@@ -123,10 +127,10 @@ extern "C" int tf_dense_lookup(int dtype, const void* const* vols, const int* lh
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     dense_lookup_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        levels, flow, out, n_query, h, w, radius, n_levels);
+        levels, flow, out, n_query, h, w, radius, n_levels, level_offset);
   } else {
     dense_lookup_kernel<float><<<grid, kThreads, 0, s>>>(
-        levels, flow, out, n_query, h, w, radius, n_levels);
+        levels, flow, out, n_query, h, w, radius, n_levels, level_offset);
   }
   return (int)cudaGetLastError();
 }

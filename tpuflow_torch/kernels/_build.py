@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("dense_lookup", "flash_attention")
+SOURCES = ("dense_lookup", "flash_attention", "corr_patch", "volume_patch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

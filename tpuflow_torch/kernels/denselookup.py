@@ -1,5 +1,7 @@
-"""K1: fused dense radius lookup (port of `dense_feature_level`,
-tpuflow/kernels/denselookup.py:398).
+"""K1 and K4: lookups from a materialized correlation pyramid.
+
+K1, the fused dense radius lookup (port of `dense_feature_level`,
+tpuflow/kernels/denselookup.py:398):
 
 For every query of a materialized correlation pyramid (levels [N, lh, lw],
 N = B*h*w, bf16 or f32) and its current flow [B, h, w, 2], sample the
@@ -8,7 +10,15 @@ and the two-stage f32 bilinear of the fused TPU kernel, in the upstream
 x-major channel order (c = lvl*(2r+1)^2 + col*(2r+1) + row).
 
 `dense_lookup` launches csrc/dense_lookup.cu for CUDA tensors and runs
-`dense_lookup_plain` for CPU tensors.
+`dense_lookup_plain` for CPU tensors.  `level_offset` = k samples stored
+level l at scale 2^(l+k): a pyramid that holds only the levels from k on.
+
+K4, the exact-value patch (port of `dense_patch_level`,
+tpuflow/kernels/denselookup.py:156): for one flat level [B*Nq, lh, lw] and
+clamped indices rr, cc [B, Nq, side], patch[b,q,i,j] = vol[b*Nq+q, rr[b,q,i],
+cc[b,q,j]] in the volume's dtype.  `dense_patch_level` launches
+csrc/volume_patch.cu for CUDA tensors and runs `dense_patch_level_plain`
+for CPU tensors; the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def dense_lookup_plain(
-    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
+    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0
 ) -> torch.Tensor:
     """Plain PyTorch version: a gather of each query's (2r+2)^2 patch, zeros
     outside the plane, then the f32 bilinear in the kernel's order."""
@@ -45,8 +55,8 @@ def dense_lookup_plain(
     out = []
     for lvl, vol in enumerate(volumes):
         lh, lw = vol.shape[1], vol.shape[2]
-        cx = base_x / (2.0**lvl)
-        cy = base_y / (2.0**lvl)
+        cx = base_x / (2.0 ** (lvl + level_offset))
+        cy = base_y / (2.0 ** (lvl + level_offset))
         x0 = torch.floor(cx)
         y0 = torch.floor(cy)
         wx = (cx - x0)[:, None, None]
@@ -72,7 +82,7 @@ def _lib():
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -99,14 +109,16 @@ def _check(volumes: Sequence[torch.Tensor], flow: torch.Tensor) -> None:
 
 
 def dense_lookup(
-    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
+    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0
 ) -> torch.Tensor:
     """[N, lh, lw] levels + flow [B, h, w, 2] f32 -> [B, h, w, L*(2r+1)^2]
     f32.  CPU tensors: the plain version; CUDA tensors: the kernel, one
     launch for all levels."""
     _check(volumes, flow)
+    if not 0 <= level_offset <= 30 - len(volumes):
+        raise ValueError(f"level_offset {level_offset} out of range")
     if flow.device.type == "cpu":
-        return dense_lookup_plain(volumes, flow, radius)
+        return dense_lookup_plain(volumes, flow, radius, level_offset)
     if flow.device.type != "cuda":
         raise ValueError(f"dense_lookup runs on cpu or cuda, not {flow.device}")
     b, h, w, _ = flow.shape
@@ -121,7 +133,7 @@ def dense_lookup(
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             _DTYPE_CODES[volumes[0].dtype], ptrs, lhs, lws, nl,
-            flow.data_ptr(), out.data_ptr(), b * h * w, h, w, radius, stream,
+            flow.data_ptr(), out.data_ptr(), b * h * w, h, w, radius, level_offset, stream,
         )
     check_launch(rc, "dense_lookup")
     dense_lookup.launches += 1
@@ -129,3 +141,84 @@ def dense_lookup(
 
 
 dense_lookup.launches = 0
+
+
+def check_patch_indices(rr: torch.Tensor, cc: torch.Tensor, device: torch.device) -> None:
+    """rr, cc: [B, Nq, side] int32, contiguous, on `device` (shared by the
+    four patch wrappers)."""
+    if rr.dim() != 3 or rr.shape != cc.shape:
+        raise ValueError(f"rr, cc must share shape [B, Nq, side]: {tuple(rr.shape)} {tuple(cc.shape)}")
+    if rr.dtype != torch.int32 or cc.dtype != torch.int32:
+        raise ValueError(f"rr, cc must be int32, got {rr.dtype} {cc.dtype}")
+    if rr.device != device or cc.device != device:
+        raise ValueError(f"rr on {rr.device}, cc on {cc.device}, data on {device}")
+    if not (rr.is_contiguous() and cc.is_contiguous()):
+        raise ValueError("rr, cc must be contiguous")
+
+
+def _volume_patch_lib():
+    fn = library("volume_patch").tf_volume_patch
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_volume_patch(
+    vol: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor, lh: int, lw: int, strides, kernel: str
+) -> torch.Tensor:
+    """csrc/volume_patch.cu on a contiguous CUDA volume whose entry (b, q,
+    row, col) lies at b*sb + q*sq + row*sr + col*sc, `strides` = (sb, sq, sr,
+    sc) in elements -> [B, Nq, side, side] in the volume's dtype."""
+    b, nq, side = rr.shape
+    out = torch.empty((b, nq, side, side), dtype=vol.dtype, device=vol.device)
+    fn = _volume_patch_lib()
+    with torch.cuda.device(vol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            vol.element_size(), vol.data_ptr(), rr.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            b * nq, nq, side, lh, lw, *strides, stream,
+        )
+    check_launch(rc, kernel)
+    return out
+
+
+def dense_patch_level_plain(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: one gather per query from its own plane."""
+    b, nq, side = rr.shape
+    n, lh, lw = volume.shape
+    idx = rr.long()[:, :, :, None] * lw + cc.long()[:, :, None, :]
+    patch = torch.gather(volume.reshape(n, lh * lw), 1, idx.reshape(n, side * side))
+    return patch.reshape(b, nq, side, side)
+
+
+def dense_patch_level(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """volume [B*Nq, lh, lw] (bf16 or f32) + clamped rr, cc [B, Nq, side]
+    int32 -> patch [B, Nq, side, side] of exact volume entries.  CPU tensors:
+    the plain version; CUDA tensors: the kernel."""
+    check_patch_indices(rr, cc, volume.device)
+    if volume.dim() != 3 or volume.shape[0] != rr.shape[0] * rr.shape[1]:
+        raise ValueError(
+            f"volume {tuple(volume.shape)}: expected [{rr.shape[0] * rr.shape[1]}, lh, lw]"
+        )
+    if volume.dtype not in _DTYPE_CODES or not volume.is_contiguous():
+        raise ValueError(f"volume must be contiguous bfloat16 or float32, got {volume.dtype}")
+    if volume.device.type == "cpu":
+        return dense_patch_level_plain(volume, rr, cc)
+    if volume.device.type != "cuda":
+        raise ValueError(f"dense_patch_level runs on cpu or cuda, not {volume.device}")
+    _, lh, lw = volume.shape
+    nq = rr.shape[1]
+    out = launch_volume_patch(
+        volume, rr, cc, lh, lw, (nq * lh * lw, lh * lw, lw, 1), "dense_patch_level"
+    )
+    dense_patch_level.launches += 1
+    return out
+
+
+dense_patch_level.launches = 0

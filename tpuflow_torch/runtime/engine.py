@@ -1,4 +1,4 @@
-"""FlowEngine: the port's inference engine, main-path subset of
+"""FlowEngine: the port's inference engine, VideoFlow subset of
 tpuflow/runtime/engine.py.
 
 - `compute_flows_tiled_stride1`: flows for every frame of a clip, one
@@ -6,11 +6,17 @@ tpuflow/runtime/engine.py.
   videoflow_core.py:193-195), tiles batched per shape group, each frame's
   per-tile encoder features computed once and kept in a rolling cache.
 - `compute_flow_tiled`: one frame's flow in tile mode.
+- `compute_flow` / `compute_flow_batch`: untiled full-frame flows, one
+  centred window per requested frame, windows on the batch axis.
+- `compute_flows_strided`: untiled flows for every frame from windows that
+  advance by T-2 frames, every interior flow kept.
 
-Both pad tiles to a multiple of 8 with edge replication, run MOFNet, keep
-the middle interior frame's forward flow and paste the tiles back
-(reference hard paste).  Numpy in, numpy out.  Runs on the card unless
-the caller passes device='cpu'.
+All pad frames (or tiles) to a multiple of 8 with edge replication and run
+MOFNet; the stride-1 and per-frame entry points keep the middle interior
+frame's forward flow, and tile mode pastes the tiles back (reference hard
+paste).  Numpy in, numpy out.  Runs on the card unless the caller passes
+device='cpu'.  MemFlow is a later slice of the port (`build_model` refuses
+it).
 """
 
 from __future__ import annotations
@@ -51,9 +57,12 @@ def build_model(
     encoder: Optional[str] = None,
     dtype: Optional[torch.dtype] = None,
     device="cuda",
+    dense_lookup: str = "auto",
 ) -> MOFNet:
     """MOFNet for `cfg` on `device` in `dtype` (default: bf16 on the card,
-    f32 on the CPU), parameters uninitialized until loaded."""
+    f32 on the CPU), parameters uninitialized until loaded.  `dense_lookup`:
+    how a DenseCorrPyramid is looked up ('auto' = the fused kernel K1; see
+    MOFNet)."""
     dev = resolve_device(device)
     if cfg.model != "videoflow" or cfg.architecture != "mof":
         raise NotImplementedError(
@@ -69,6 +78,7 @@ def build_model(
         context_dim=cfg.context_dim,
         encoder=encoder or cfg.encoder,
         corr_impl=cfg.corr_impl,
+        dense_lookup=dense_lookup,
     )
     return model.to(device=dev, dtype=dtype or default_compute_dtype(dev)).eval()
 
@@ -113,13 +123,15 @@ class FlowEngine:
         seed: int = 0,
         device="cuda",
         dtype: Optional[torch.dtype] = None,
+        dense_lookup: str = "auto",
     ):
         """`params`: a state dict with upstream names (loaded by load_model).
         `device`: 'cuda' (default) or 'cpu'.  `dtype`: compute dtype
-        (default bf16 on the card, f32 on the CPU)."""
+        (default bf16 on the card, f32 on the CPU).  `dense_lookup`: see
+        build_model."""
         self.config = config
         self.device = resolve_device(device)
-        self.model = build_model(config, encoder, dtype, self.device)
+        self.model = build_model(config, encoder, dtype, self.device, dense_lookup)
         self.params = params
         self.seed = seed
         self._loaded = False
@@ -160,6 +172,81 @@ class FlowEngine:
     def _require_loaded(self) -> None:
         if not self._loaded:
             raise RuntimeError("Model not loaded. Call load_model() first.")
+
+    def get_model_info(self) -> dict:
+        """Introspection (videoflow_core.py:204-242 parity)."""
+        if not self._loaded:
+            return {"status": "not_loaded"}
+        return {
+            "status": "loaded",
+            "model_path": self.config.checkpoint_path,
+            "dataset": self.config.dataset,
+            "architecture": self.config.architecture.upper(),
+            "variant": self.config.variant,
+            "config": {
+                "decoder_depth": self.config.decoder_depth,
+                "corr_levels": self.config.corr_levels,
+                "corr_radius": self.config.corr_radius,
+            },
+            "fast_mode": self.config.fast_mode,
+            "sequence_length": self.config.sequence_length,
+        }
+
+    def _window_flows_all(self, windows: np.ndarray) -> np.ndarray:
+        """Untiled forward: windows [B, T, h, w, 3] (uint8 0..255 or float
+        0..1) -> forward flows of ALL interior frames [B, T-2, h, w, 2]."""
+        b, t, h, w = windows.shape[:4]
+        pads = pad_dims(h, w, 8)
+        pt, _, pl, _ = pads
+        x = torch.from_numpy(windows).to(self.device)
+        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+        x = pad_frames_edge(x.reshape(b * t, h, w, 3), pads)
+        up_fwd, _ = self.model(x.reshape(b, t, *x.shape[1:]))
+        return up_fwd[:, :, pt : pt + h, pl : pl + w].cpu().numpy()
+
+    def compute_flow(self, frames: Sequence[np.ndarray], frame_idx: int) -> np.ndarray:
+        """Forward flow [H, W, 2] of frame `frame_idx` from its centred window
+        of whole frames (flow_inference.py:24 contract)."""
+        return self.compute_flow_batch(frames, [frame_idx])[0]
+
+    @torch.inference_mode()
+    def compute_flow_batch(
+        self, frames: Sequence[np.ndarray], frame_indices: Sequence[int]
+    ) -> np.ndarray:
+        """[len(frame_indices), H, W, 2]: one centred window per requested
+        frame, all windows in one batch, the middle interior flow of each."""
+        self._require_loaded()
+        arr = np.asarray(frames)
+        t = self.config.sequence_length
+        wins = np.stack([centered_window_indices(len(arr), i, t) for i in frame_indices])
+        flows = self._window_flows_all(arr[wins])
+        return flows[:, flows.shape[1] // 2]
+
+    @torch.inference_mode()
+    def compute_flows_strided(
+        self, frames: Sequence[np.ndarray], window_batch: int = 2
+    ) -> np.ndarray:
+        """Flows [N, H, W, 2] for every frame at interior stride: windows start
+        at -1, T-3, 2T-5, ... (indices clipped to the clip) and every interior
+        flow is kept, so T-2 times fewer windows run than at stride 1.
+        Batches hold `window_batch` windows; the last one holds what is
+        left."""
+        self._require_loaded()
+        arr = np.asarray(frames)
+        n, h, w = arr.shape[:3]
+        t = self.config.sequence_length
+        stride = t - 2
+        starts = list(range(-1, n - 1, stride))
+        flows = np.empty((n, h, w, 2), np.float32)
+        for b0 in range(0, len(starts), window_batch):
+            chunk = starts[b0 : b0 + window_batch]
+            idx = np.stack([np.clip(np.arange(a, a + t), 0, n - 1) for a in chunk])
+            out = self._window_flows_all(arr[idx])
+            for j, a in enumerate(chunk):
+                for k in range(stride):
+                    if 0 <= a + 1 + k < n:
+                        flows[a + 1 + k] = out[j, k]
+        return flows
 
     def _tile_features(self, frame: np.ndarray, tiles_info, idxs, overlap: int):
         """One frame's tiles of one shape group -> (feats, ctx), each
