@@ -1,12 +1,20 @@
 #!/usr/bin/env bash
-# Shows that chip_smoke.py's comparisons between correlation formulations can
-# fail: runs its formulation and untiled phases on copies of the repository
-# made under a temporary directory, one unbroken and two deliberately broken
-# in tpuflow_torch/core/corr.py (the lookup window's x and y axes left
-# unswapped; the deepest pyramid level sampled at level 2's scale), and prints
-# for each copy whether each phase passed.  The unbroken copy must pass both
-# phases and each broken copy must fail both.  Needs one CUDA card and nvcc;
-# the repository itself is never modified.
+# Shows that chip_smoke.py's checks can fail: runs some of its phases on
+# copies of the repository made under a temporary directory, one unbroken
+# and five deliberately broken, and prints for each copy whether each phase
+# passed.
+#   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
+#              left unswapped              -> formulations and untiled fail
+#   level      corr.py: the deepest pyramid level sampled at level 2's
+#              scale                       -> formulations and untiled fail
+#   k1clamp    csrc/dense_lookup.cu: taps outside the plane read from the
+#              clamped address instead of 0 -> K1's kernel check fails
+#   k2mask     csrc/flash_attention.cu: the last key tile's mask removed, so
+#              zero-filled keys past S score 0 -> K2's kernel check fails
+#   k2rescale  flash_attention.cu: the accumulator not rescaled when the row
+#              max moves                   -> K2's kernel check fails
+# The unbroken copy must pass all four phases.  Needs one CUDA card and
+# nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh        # from the repository root
 set -u
@@ -17,43 +25,61 @@ trap 'rm -rf "$work"' EXIT
 runner='
 import sys, torch, chip_smoke as cs
 cs.phase_environment(); cs.phase_build()
-from tpuflow_torch.config import ModelConfig
-from tpuflow_torch.runtime.engine import FlowEngine
-from tpuflow_torch.kernels.bandlookup import band_patch_level
-from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
-from tpuflow_torch.kernels.flashattn import flash_attention_fwd
-from tpuflow_torch.kernels.flashcorr import flash_patch_level
-from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
-kernels = {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
-                                      dense_patch_level, flash_patch_level, band_patch_level)}
-engine = FlowEngine(ModelConfig(), seed=cs.SEED)
-engine.load_model(allow_random_init=True)
-for name, phase in (("formulations", cs.phase_formulations), ("untiled", cs.phase_untiled)):
+copy, phases = sys.argv[1], sys.argv[2].split(",")
+dev = torch.device("cuda")
+engine = kernels = None
+if "formulations" in phases or "untiled" in phases:
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.runtime.engine import FlowEngine
+    from tpuflow_torch.kernels.bandlookup import band_patch_level
+    from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
+    from tpuflow_torch.kernels.flashattn import flash_attention_fwd
+    from tpuflow_torch.kernels.flashcorr import flash_patch_level
+    from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
+    kernels = {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
+                                          dense_patch_level, flash_patch_level, band_patch_level)}
+    engine = FlowEngine(ModelConfig(), seed=cs.SEED)
+    engine.load_model(allow_random_init=True)
+runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
+        "untiled": lambda: cs.phase_untiled(engine, kernels),
+        "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev)}
+for name in phases:
     try:
-        phase(engine, kernels)
-        print("COPY", sys.argv[1], name, "PASSED")
+        runs[name]()
+        print("COPY", copy, name, "PASSED")
     except AssertionError as exc:
-        print("COPY", sys.argv[1], name, "FAILED:", str(exc)[:200])
+        print("COPY", copy, name, "FAILED:", str(exc)[:200])
     torch.cuda.empty_cache()
 '
 
 status=0
-for copy in unbroken axes level; do
+for copy in unbroken axes level k1clamp k2mask k2rescale; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
     cp -r "$root/chip_smoke.py" "$root/tpuflow_torch" "$work/copy/"
     rm -rf "$work/copy/tpuflow_torch/build"
     cd "$work/copy" || exit 1
+    edited=
     case $copy in
-        axes)  sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' tpuflow_torch/core/corr.py ;;
-        level) sed -i 's/_radius_patch_indices(base_x, base_y, lvl0 + level_offset, lh, lw, radius)/_radius_patch_indices(base_x, base_y, min(lvl0 + level_offset, 2), lh, lw, radius)/' tpuflow_torch/core/corr.py ;;
+        unbroken)  phases=formulations,untiled,k1,k2 ;;
+        axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
+                   sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
+        level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
+                   sed -i 's/_radius_patch_indices(base_x, base_y, lvl0 + level_offset, lh, lw, radius)/_radius_patch_indices(base_x, base_y, min(lvl0 + level_offset, 2), lh, lw, radius)/' $edited ;;
+        k1clamp)   phases=k1; edited=tpuflow_torch/csrc/dense_lookup.cu
+                   sed -i 's/inside ? to_f32(__ldg(pl + gr \* lw + gc)) : 0.0f/to_f32(__ldg(pl + min(max(gr, 0), lh - 1) * lw + min(max(gc, 0), lw - 1)))/' $edited ;;
+        k2mask)    phases=k2; edited=tpuflow_torch/csrc/flash_attention.cu
+                   sed -i '/sacc\[i\] = -CUDART_INF_F;/d' $edited ;;
+        k2rescale) phases=k2; edited=tpuflow_torch/csrc/flash_attention.cu
+                   sed -i '/oacc\[i\] \*= (i & 2) ? a1 : a0;/d' $edited ;;
     esac
-    if [ "$copy" != unbroken ] && cmp -s "$root/tpuflow_torch/core/corr.py" tpuflow_torch/core/corr.py; then
+    if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" 2>&1 | grep -E "^COPY|vs 'dense'|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
-    [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = 2 ] || status=1
+    n=$(echo "$phases" | tr ',' '\n' | wc -l)
+    [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1
     cd "$root" || exit 1
 done
 [ $status = 0 ] && echo "chip_mutants: ok" || echo "chip_mutants: NOT as expected"

@@ -65,6 +65,8 @@ FORMULATION_DEPTH = 2             # iterations of the 'flash' / 'band' / 'patch'
 UNTILED_QUERIES = (3, 135, 240)   # interior frames x the /8 grid of one 1920x1080 window
 TILE_QUERIES = (6, 135, 120)      # 2 tiles x 3 interior frames x the /8 grid of a 960x1080 tile
 FEATURE_DIM = 256
+# K2's bf16 ragged key counts: partial and whole 128-row tiles around 1 and 2.
+K2_RAGGED_S = (1, 63, 64, 65, 127, 128, 129, 200)
 PARITY_SHAPE = (5, 128, 256)      # frames, H, W: two 128x128 tiles at tile_size 128
 # Two bf16 runs of one window that round differently (another formulation,
 # another batch size) are held to these shares of the mean |flow|.  Sound
@@ -116,6 +118,31 @@ def phase_environment() -> str:
     return smi
 
 
+def find_cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(str(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"))
+    for cand in cands:
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("cuobjdump not found (CUDA toolkit or triton/backends/nvidia/bin)")
+
+
+def sass_counts(library, opcodes) -> dict:
+    """How many instructions of each opcode the library's SASS holds."""
+    import re
+
+    sass = subprocess.run([find_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
 def phase_build() -> None:
     from tpuflow_torch.kernels import _build
 
@@ -124,8 +151,14 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line or "arning" in line:
                 log(f"  {name}: {line.strip()}")
+    # K2's bf16 kernel must be built from wgmma (HGMMA) fed by TMA
+    # (UTMALDG): a design that fell back to mma.sync has neither.
+    counts = sass_counts(_build.library_path("flash_attention"), ("HGMMA", "UTMALDG"))
+    log(f"  flash_attention SASS: {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention is not built from wgmma and TMA: {counts}")
 
 
 def random_volumes(g, dev, n, h, w, levels, dtype):
@@ -136,23 +169,51 @@ def random_volumes(g, dev, n, h, w, levels, dtype):
     return vols
 
 
+def window_edges(flow, r: int, dims, offset: int) -> list:
+    """For each level (lh, lw) of `dims` sampled at 2^(l + offset): whether
+    some query's (2r+2)^2 patch straddles the plane's left, right, top and
+    bottom edge."""
+    b, h, w, _ = flow.shape
+    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device, dtype=torch.float32),
+                            torch.arange(w, device=flow.device, dtype=torch.float32), indexing="ij")
+    bx, by = xs + flow[..., 0], ys + flow[..., 1]
+    side = 2 * r + 2
+    out = []
+    for lvl, (lh, lw) in enumerate(dims):
+        x0 = torch.floor(bx / 2 ** (lvl + offset)) - r
+        y0 = torch.floor(by / 2 ** (lvl + offset)) - r
+        out.append([bool(((lo < edge) & (lo + side > edge)).any()) for lo, edge in
+                    ((x0, 0), (x0, lw), (y0, 0), (y0, lh))])
+    return out
+
+
 def check_dense_lookup(dev) -> dict:
-    """K1 on ragged shapes (198 queries: no power-of-two block divides it;
-    flows of 1.5x the grid push whole windows off the plane), then at the
-    main path: 4 levels of bf16 volumes for 6 x 135 x 120 queries, radius
-    4, flows of +-40 px."""
+    """K1 on ragged shapes, then at the main path: 4 levels of bf16 volumes
+    for 6 x 135 x 120 queries, radius 4, flows of +-40 px.
+
+    Ragged: radius 0 to 4, 1 to 6 levels, with and without level_offset,
+    odd plane widths, 198 queries (no power-of-two block divides them) or
+    10 050; flows of up to 1.5x the grid put patches across each edge of
+    each level's plane (asserted) and wholly off it."""
     from tpuflow_torch.kernels.denselookup import dense_lookup, dense_lookup_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    # The last case is a sidecar pyramid: stored levels sampled at 2^(l+1).
-    for levels, r, dtype, off in ((3, 2, torch.float32, 0), (4, 4, torch.bfloat16, 0),
-                                  (2, 3, torch.bfloat16, 1)):
-        b, h, w = 2, 9, 11
+    for (b, h, w), levels, r, dtype, off in (((2, 9, 11), 4, 0, torch.float32, 0),
+                                             ((2, 9, 11), 3, 1, torch.bfloat16, 1),
+                                             ((2, 9, 11), 3, 2, torch.float32, 0),
+                                             ((2, 9, 11), 2, 3, torch.bfloat16, 1),
+                                             ((2, 9, 11), 4, 4, torch.bfloat16, 0),
+                                             ((2, 9, 11), 1, 4, torch.float32, 2),
+                                             ((2, 67, 75), 6, 3, torch.bfloat16, 0)):
         vols = random_volumes(g, dev, b * h * w, h >> off, w >> off, levels, dtype)
         flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * torch.tensor(
             [1.5 * w, 1.5 * h], device=dev)
+        edges = window_edges(flow, r, [v.shape[1:] for v in vols], off)
+        if not all(all(e) for e in edges):
+            raise AssertionError(f"K1 ragged draw leaves a plane edge unstraddled: {edges}")
         err = (dense_lookup(vols, flow, r, off) - dense_lookup_plain(vols, flow, r, off)).abs().max().item()
-        log(f"K1 ragged {b}x{h}x{w} L={levels} r={r} offset={off} {dtype}: max |kernel - plain| = {err:.3e}")
+        log(f"K1 ragged {b}x{h}x{w} L={levels} r={r} offset={off} {dtype} planes "
+            f"{[tuple(v.shape[1:]) for v in vols]}: max |kernel - plain| = {err:.3e}")
         if not err <= 1e-5:
             raise AssertionError(f"K1 disagrees with its plain version on a ragged shape: {err}")
 
@@ -241,10 +302,11 @@ def check_dense_lookup(dev) -> dict:
 
 
 def check_flash_attention(dev) -> dict:
-    """K2 on ragged key counts, then at both shapes its paths give it, q, k,
-    v bf16 with q pre-scaled by 128^-0.5 as Attention emits it: the tiled
-    window's [6, 16200, 128] (254 key tiles of 64, the last of 8 keys) and
-    the untiled window's [3, 32400, 128] (507 tiles, the last of 16)."""
+    """K2 on ragged shapes, then at both shapes its paths give it, q, k, v
+    bf16 with q pre-scaled by 128^-0.5 as Attention emits it: the tiled
+    window's [6, 16200, 128] (127 query tiles and 127 key tiles of 128, the
+    last of 72 rows) and the untiled window's [3, 32400, 128] (254 of each,
+    the last of 16)."""
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -254,17 +316,20 @@ def check_flash_attention(dev) -> dict:
         q = (torch.randn((b, s, d), generator=g, device=dev) * d**-0.5).to(dtype)
         return q, *(torch.randn((b, s, d), generator=g, device=dev).to(dtype) for _ in range(2))
 
-    # Ragged key counts (a partial last tile, S below one tile) in both
-    # dtypes: bf16 within 1e-2 + 1e-2|ref| (see below), f32 (the FMA
-    # kernel, exact exponentials) within 1e-4 + 1e-4|ref|.
-    for b, s, dtype, tol in ((2, 99, torch.bfloat16, 1e-2), (1, 130, torch.float32, 1e-4),
-                             (3, 37, torch.float32, 1e-4)):
-        q, k, v = qkv(b, s, dtype)
-        got, ref = flash_attention_fwd(q, k, v).float(), flash_attention_plain(q, k, v).float()
-        excess = ((got - ref).abs() - tol * (1 + ref.abs())).max().item()
-        log(f"K2 ragged [{b},{s},128] {dtype}: max |kernel - plain| = {(got - ref).abs().max().item():.3e}")
+    # The f32 FMA kernel on ragged key counts, within 1e-4 + 1e-4|ref|
+    # (exact exponentials, f32 sums in another order).
+    for b, s in ((1, 130), (3, 37)):
+        q, k, v = qkv(b, s, torch.float32)
+        got, ref = flash_attention_fwd(q, k, v), flash_attention_plain(q, k, v)
+        excess = ((got - ref).abs() - 1e-4 * (1 + ref.abs())).max().item()
+        log(f"K2 ragged [{b},{s},128] f32: max |kernel - plain| = {(got - ref).abs().max().item():.3e}")
         if not excess <= 0:
-            raise AssertionError(f"K2 disagrees with its plain version at S={s} {dtype}")
+            raise AssertionError(f"K2 (f32) disagrees with its plain version at S={s}")
+    # The bf16 kernel at B = 3 on partial query and key tiles of its 128-row
+    # CTA, S below one tile and tiles that end at a batch row's edge (the
+    # 3-D tensor map zero-fills past S instead of reading the next row).
+    for s in K2_RAGGED_S:
+        flash_attention_draws(qkv, 3, s)
 
     tiled = flash_attention_at(qkv, TILE_QUERIES[0], TILE_QUERIES[1] * TILE_QUERIES[2])
     untiled = flash_attention_at(qkv, UNTILED_QUERIES[0], UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
@@ -276,11 +341,10 @@ def check_flash_attention(dev) -> dict:
     }
 
 
-def flash_attention_at(qkv, b: int, s: int) -> dict:
+def flash_attention_draws(qkv, b: int, s: int):
     """K2 at [b, s, 128] bf16 against its plain version (chunked over
-    queries) and an f32 reference, two draws, then its times and bound."""
-    import torch.nn.functional as F
-
+    queries) and an f32 reference, two draws.  Returns (max |kernel -
+    plain|, the last draw's q, k, v)."""
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
     # At the model's scale (logits N(0, 1) over s keys) the softmax is nearly
@@ -293,8 +357,8 @@ def flash_attention_at(qkv, b: int, s: int) -> dict:
     #   most 2^-7 * scale with scale = softmax(q k^T) |v|, and the two differ
     #   by at most 2^-6 * scale;
     # - by norm: the kernel no worse than the plain bf16 version by more
-    #   than a quarter.  A dropped or doubled 64-key tile moves the output by
-    #   about sqrt(64 / s) (6e-2 at 16200 keys, 4e-2 at 32400) of its norm
+    #   than a quarter.  A dropped or doubled 128-key tile moves the output by
+    #   about sqrt(128 / s) (9e-2 at 16200 keys, 6e-2 at 32400) of its norm
     #   even at the model's scale.
     d = 128
     err = 0.0
@@ -319,8 +383,18 @@ def flash_attention_at(qkv, b: int, s: int) -> dict:
         if not (ratio_exact <= 2**-7 and ratio_plain <= 2**-6 and rel_kernel <= 1.25 * rel_plain + 1e-4):
             raise AssertionError(f"K2 disagrees with its plain version at [{b},{s},{d}] ({name}): "
                                  f"{diff.max().item()}, by norm {rel_kernel} vs plain {rel_plain}")
-    del exact, scale, got, ref
+    return err, q, k, v
 
+
+def flash_attention_at(qkv, b: int, s: int) -> dict:
+    """K2 at [b, s, 128] bf16: both draws, then its times and bound."""
+    import torch.nn.functional as F
+
+    from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
+
+    d = 128
+    err, q, k, v = flash_attention_draws(qkv, b, s)
+    torch.cuda.empty_cache()
     flops = 4.0 * b * s * s * d
     nbytes = 4 * b * s * d * 2
     bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3

@@ -20,7 +20,7 @@ from tpuflow.core.corr import pyramid_level_dims
 from tpuflow.core.gma import flash_aggregate
 
 from tpuflow_torch.core.corr import DenseCorrPyramid, corr_feature_dim, make_corr
-from tpuflow_torch.kernels.denselookup import dense_lookup
+from tpuflow_torch.kernels.denselookup import MAX_RADIUS, dense_lookup
 from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
 
@@ -131,11 +131,26 @@ def test_flash_attention_plain_chunks_agree():
     torch.testing.assert_close(small, whole, rtol=1e-5, atol=1e-5)
 
 
-def test_wrappers_reject_bad_inputs():
-    f = torch.zeros(1, 3, 4, 2)
+_FLOW = torch.zeros(1, 3, 4, 2)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: dense_lookup([torch.zeros(11, 3, 4)], _FLOW, 1),                    # N != B*h*w
+    lambda: dense_lookup([torch.zeros(12, 3, 4, dtype=torch.float16)], _FLOW, 1),
+    lambda: dense_lookup([torch.zeros(12, 3, 4)], _FLOW, MAX_RADIUS + 1),      # above the staging cap
+    lambda: dense_lookup([torch.zeros(12, 3, 4)], _FLOW, -1),
+    lambda: flash_attention_fwd(*(torch.zeros(1, 5, 64) for _ in range(3))),
+], ids=["query_count", "fp16_volume", "radius_above_cap", "negative_radius", "head_dim"])
+def test_wrappers_reject_bad_inputs(call):
     with pytest.raises(ValueError):
-        dense_lookup([torch.zeros(11, 3, 4)], f, 1)           # N != B*h*w
-    with pytest.raises(ValueError):
-        dense_lookup([torch.zeros(12, 3, 4, dtype=torch.float16)], f, 1)
-    with pytest.raises(ValueError):
-        flash_attention_fwd(*(torch.zeros(1, 5, 64) for _ in range(3)))
+        call()
+
+
+def test_dense_lookup_takes_the_radius_cap():
+    """MAX_RADIUS itself is accepted, on a plane smaller than the window."""
+    out = dense_lookup([torch.ones(12, 3, 4)], _FLOW, MAX_RADIUS)
+    side = 2 * MAX_RADIUS + 1
+    assert out.shape == (1, 3, 4, side * side)
+    # Zero flow: each window covers the whole 3x4 plane of ones with whole-
+    # pixel weights, so exactly 12 taps read 1 and the rest lie outside.
+    assert torch.equal(out.sum(dim=-1), torch.full((1, 3, 4), 12.0))

@@ -12,6 +12,8 @@ x-major channel order (c = lvl*(2r+1)^2 + col*(2r+1) + row).
 `dense_lookup` launches csrc/dense_lookup.cu for CUDA tensors and runs
 `dense_lookup_plain` for CPU tensors.  `level_offset` = k samples stored
 level l at scale 2^(l+k): a pyramid that holds only the levels from k on.
+The kernel stages each query's patches in shared memory, one patch row per
+warp pass, so both versions take radii 0..MAX_RADIUS only.
 
 K4, the exact-value patch (port of `dense_patch_level`,
 tpuflow/kernels/denselookup.py:156): for one flat level [B*Nq, lh, lw] and
@@ -31,6 +33,7 @@ import torch
 from ._build import check_launch, library
 
 MAX_LEVELS = 8
+MAX_RADIUS = 14
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -115,6 +118,8 @@ def dense_lookup(
     f32.  CPU tensors: the plain version; CUDA tensors: the kernel, one
     launch for all levels."""
     _check(volumes, flow)
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius {radius} out of range 0..{MAX_RADIUS}")
     if not 0 <= level_offset <= 30 - len(volumes):
         raise ValueError(f"level_offset {level_offset} out of range")
     if flow.device.type == "cpu":
