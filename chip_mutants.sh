@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and five deliberately broken, and prints for each copy whether each phase
+# and eight deliberately broken, and prints for each copy whether each phase
 # passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
@@ -13,7 +13,13 @@
 #              zero-filled keys past S score 0 -> K2's kernel check fails
 #   k2rescale  flash_attention.cu: the accumulator not rescaled when the row
 #              max moves                   -> K2's kernel check fails
-# The unbroken copy must pass all four phases.  Needs one CUDA card and
+#   k3origin   csrc/corr_patch.cu: the tensor path's column offsets taken
+#              from a box origin one column off -> K3's kernel check fails
+#   k3chunk    corr_patch.cu: the tensor path's last 16-channel k-step
+#              skipped                     -> K3's kernel check fails
+#   k3rule     corr_patch.cu: boxes of up to 4x the cap sent to the tensor
+#              path, whose S holds only the cap -> K3's kernel check fails
+# The unbroken copy must pass all five phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh        # from the repository root
@@ -42,7 +48,10 @@ if "formulations" in phases or "untiled" in phases:
     engine.load_model(allow_random_init=True)
 runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "untiled": lambda: cs.phase_untiled(engine, kernels),
-        "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev)}
+        "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
+        "k3": lambda: cs.check_corr_patch(dev, *k3)}
+from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level as k3f, flash2_patch_level_plain as k3p
+k3 = (k3f, k3p, "tpuflow/kernels/flashcorr2.py:246")
 for name in phases:
     try:
         runs[name]()
@@ -53,7 +62,7 @@ for name in phases:
 '
 
 status=0
-for copy in unbroken axes level k1clamp k2mask k2rescale; do
+for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
     cp -r "$root/chip_smoke.py" "$root/tpuflow_torch" "$work/copy/"
@@ -61,7 +70,7 @@ for copy in unbroken axes level k1clamp k2mask k2rescale; do
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2 ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3 ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -72,11 +81,17 @@ for copy in unbroken axes level k1clamp k2mask k2rescale; do
                    sed -i '/sacc\[i\] = -CUDART_INF_F;/d' $edited ;;
         k2rescale) phases=k2; edited=tpuflow_torch/csrc/flash_attention.cu
                    sed -i '/oacc\[i\] \*= (i & 2) ? a1 : a0;/d' $edited ;;
+        k3origin)  phases=k3; edited=tpuflow_torch/csrc/corr_patch.cu
+                   sed -i 's/(short)(s_cc\[m \* kMaxSide + lane - side\] - c0);/(short)(s_cc[m * kMaxSide + lane - side] - c0 + 1);/' $edited ;;
+        k3chunk)   phases=k3; edited=tpuflow_torch/csrc/corr_patch.cu
+                   sed -i 's/    for (; k + 16 < C; k += 32) {/    for (; k + 48 < C; k += 32) {/' $edited ;;
+        k3rule)    phases=k3; edited=tpuflow_torch/csrc/corr_patch.cu
+                   sed -i 's/const bool tensor = npix <= kMaxBox;/const bool tensor = npix <= 4 * kMaxBox;/' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

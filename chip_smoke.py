@@ -9,15 +9,18 @@ prints no result lines):
 1. environment: a CUDA device is required; prints nvidia-smi's name and
    power limit.
 2. build: every CUDA kernel from tpuflow_torch/csrc, one nvcc per source,
-   all started together.
+   all started together; K2's SASS must hold wgmma and TMA instructions,
+   K3/K5's tensor-core ones.
 3. kernels: each kernel against its plain PyTorch version at the shapes
    its path gives it, with its time, its plain version's time, its bound on
    the card and, where one exists, one PyTorch call's time.  K1 and K2 at
    the tiled path (two 960x1080 tiles, /8 grid 135x120, 6 batch rows per
    window), K1 also as the 'flash' sidecar there and K2 also at the untiled
    window's [3, 32400, 128]; the correlation-patch kernel (K3 and K5) at
-   the untiled 1920x1080 window (3 x 135x240 queries, C = 256), K5 also at
-   level 0 of the tile shape, both against an f32 reference; the
+   the untiled 1920x1080 window (3 x 135x240 queries, C = 256) on
+   independent, smooth, small and mixed flow fields, with the share of
+   query tiles that take its tensor-core path, K5 also at level 0 of the
+   tile shape, both against an f32 reference; the
    volume-patch kernel (K4 flat layout, K6 band layout) at the tile shape,
    bit for bit; each also on ragged shapes.
 4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
@@ -25,8 +28,9 @@ prints no result lines):
    levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
    kernels' launch counters are zeroed just before and read just after.
 5. end to end, untiled: one 1920x1080 window through FlowEngine.compute_flow
-   with corr_impl='auto' (FlashCorr2, kernel K3; counters as above), then
-   the same window with corr_impl='dense', and the two flows compared.
+   with corr_impl='auto' (FlashCorr2, kernel K3; counters as above; K3's
+   device time in the profile of one refinement), then the same window
+   with corr_impl='dense', and the two flows compared.
 6. multi-window, untiled: compute_flows_strided on seven 1920x1080 frames
    with window_batch=2 and compute_flow_batch with two windows; the middle
    interior frame of a strided window against compute_flow.
@@ -86,11 +90,16 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+def time_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Median device time of one call, from CUDA events around each call.
+    queued: the card first sleeps while the host enqueues every call, so
+    that a call shorter than its own launch cost on the host is timed on the
+    device alone, not with the host's gaps between launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(200_000_000)        # ~0.1 s at the H100's clocks
     events = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -159,6 +168,12 @@ def phase_build() -> None:
     log(f"  flash_attention SASS: {counts}")
     if not all(counts.values()):
         raise AssertionError(f"flash_attention is not built from wgmma and TMA: {counts}")
+    # K3/K5's tile kernel must run its products on the tensor cores (HMMA
+    # from mma.sync, or HGMMA).
+    counts = sass_counts(_build.library_path("corr_patch"), ("HMMA", "HGMMA"))
+    log(f"  corr_patch SASS: {counts}")
+    if not any(counts.values()):
+        raise AssertionError(f"corr_patch holds no tensor-core instruction: {counts}")
 
 
 def random_volumes(g, dev, n, h, w, levels, dtype):
@@ -421,11 +436,55 @@ def patch_geometry(flow, lvl, lh, lw, r):
     return idx.rr, idx.cc
 
 
+def flow_field(g, dev, b: int, h: int, w: int, kind: str, amp: float = 40.0) -> torch.Tensor:
+    """Flows [b, h, w, 2] in cells of the query grid, f32:
+    - 'independent': each query's own uniform draw in +-amp;
+    - 'smooth': a +-amp field drawn at 1/16 of the grid (ceil(h/16) + 1 by
+      ceil(w/16) + 1 points) and upsampled bilinearly;
+    - 'small': a smooth field with |flow| under 1 cell, like the model's;
+    - 'mixed': smooth, with a band of rows [3h/8, 5h/8) of independent
+      flows."""
+    def smooth(a):
+        coarse = (torch.rand((b, 2, -(-h // 16) + 1, -(-w // 16) + 1), generator=g, device=dev) * 2 - 1) * a
+        up = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=True)
+        return up.permute(0, 2, 3, 1).contiguous()
+
+    def independent():
+        return (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * amp
+
+    if kind == "independent":
+        return independent()
+    if kind == "smooth":
+        return smooth(amp)
+    if kind == "small":
+        return smooth(0.7)                  # |flow| <= 0.7 * sqrt(2) < 1
+    if kind == "mixed":
+        flow = smooth(amp)
+        flow[:, 3 * h // 8: 5 * h // 8] = independent()[:, 3 * h // 8: 5 * h // 8]
+        return flow
+    raise ValueError(kind)
+
+
+def tensor_shares(geo, pooled, grid_w: int) -> list:
+    """Per level, the share of query tiles that take the tensor-core path,
+    by the kernel's own rule (kernels/flashcorr2.py:tensor_path_tiles)."""
+    from tpuflow_torch.kernels.flashcorr2 import tensor_path_tiles
+
+    return [tensor_path_tiles(rr, cc, grid_w, f2l.shape[1], f2l.shape[2]).float().mean().item()
+            for (rr, cc), f2l in zip(geo, pooled)]
+
+
 def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
     """The correlation-patch kernel through one of its two wrappers (K3
-    `flash2_patch_level`, K5 `flash_patch_level`): ragged shapes, then one
-    lookup of the untiled 1920x1080 window: 3 x 135x240 queries, C = 256,
-    radius 4, 4 pooled levels, bf16, flows of +-40 px.
+    `flash2_patch_level`, K5 `flash_patch_level`), with the query grid's
+    width as the path passes it: ragged shapes, then lookups of the untiled
+    1920x1080 window: 3 x 135x240 queries, C = 256, radius 4, 4 pooled
+    levels, bf16, on four flow fields (flow_field): independent +-40 cells,
+    where the tiles take the per-query path at the fine levels; smooth
+    +-40, where most take the tensor-core path; small, like the model's;
+    mixed, where one launch runs both paths.  Each level's share of
+    tensor-path tiles is logged; the kernel is timed per 4-level lookup on
+    the independent and the smooth field.
 
     Tolerances, per entry, with scale = sum_c |f1_c| |f2_c| / sqrt(C): the
     kernel sums in f32 and rounds once to bf16 (half an ulp, 2^-9 of the
@@ -439,24 +498,28 @@ def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
     `also` = ((B, h, w), levels): one more bf16 shape the wrapper's path
     gives it, held to the same limits."""
     from tpuflow_torch.core.corr import _pooled_features
+    from tpuflow_torch.kernels.flashcorr2 import takes_tiles
 
     name = wrapper.__name__
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
 
-    def draw(b, h, w, c, levels, dtype, flow_px):
+    def draw(b, h, w, c, levels, dtype, kind, amp=40.0):
         f1 = torch.randn((b, h * w, c), generator=g, device=dev).to(dtype)
         pooled = [p.contiguous() for p in _pooled_features(
             torch.randn((b, h, w, c), generator=g, device=dev).to(dtype), levels)]
-        flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * flow_px
-        return f1, pooled, flow
+        return f1, pooled, flow_field(g, dev, b, h, w, kind, amp)
 
     def compare(f1, pooled, flow, r):
-        """(max |kernel - plain|, worst kernel-vs-plain, worst kernel-vs-f32),
-        the last two in units of the entry's scale."""
+        """(max |kernel - plain|, worst kernel-vs-plain, worst kernel-vs-f32,
+        per-level tensor-path shares), the middle two in units of the entry's
+        scale."""
+        grid_w = flow.shape[2]
         err = vs_plain = vs_exact = 0.0
+        geo = []
         for lvl, f2l in enumerate(pooled):
             rr, cc = patch_geometry(flow, lvl, f2l.shape[1], f2l.shape[2], r)
-            got = wrapper(f1, f2l, rr, cc).float()
+            geo.append((rr, cc))
+            got = wrapper(f1, f2l, rr, cc, grid_w=grid_w).float()
             ref = plain(f1, f2l, rr, cc).float()
             exact = plain(f1.float(), f2l.float(), rr, cc)
             scale = plain(f1.float().abs(), f2l.float().abs(), rr, cc) + 1e-6
@@ -466,58 +529,100 @@ def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
             err = max(err, (got - ref).abs().max().item())
             vs_plain = max(vs_plain, ((got - ref).abs() / scale).max().item())
             vs_exact = max(vs_exact, ((got - exact).abs() / scale).max().item())
-        return err, vs_plain, vs_exact
+        shares = tensor_shares(geo, pooled, grid_w) if takes_tiles(f1.dtype, f1.shape[2]) else [0.0] * len(pooled)
+        return err, vs_plain, vs_exact, shares
 
     # Ragged: 2 x 13 x 17 = 442 queries (no block of 8 divides 221 per
-    # image), C below and off the 16-byte vector width, both radii, flows
-    # that push whole windows off the plane.
-    for c, r, dtype, levels in ((32, 3, torch.float32, 3), (20, 4, torch.bfloat16, 2),
-                                (6, 3, torch.float32, 2), (40, 3, torch.bfloat16, 3)):
-        f1, pooled, flow = draw(2, 13, 17, c, levels, dtype, 20.0)
-        err, vs_plain, vs_exact = compare(f1, pooled, flow, r)
-        log(f"{name} ragged 2x13x17 C={c} r={r} L={levels} {dtype}: max |kernel - plain| = {err:.3e} "
-            f"= {vs_plain:.3e} scale, |kernel - f32| = {vs_exact:.3e} scale")
+    # image; 4 x 8 tiles are partial in both directions), C below and off
+    # the 16-byte vector width, both radii, flows that push whole windows off
+    # the plane.  The bf16 cases with C = 32 and 48 run the tile kernel on
+    # smooth flows, whose tiles' boxes are partly clamped at the plane's
+    # edges and take the tensor-core path.
+    for c, r, dtype, levels, kind in ((32, 3, torch.float32, 3, "independent"),
+                                      (20, 4, torch.bfloat16, 2, "independent"),
+                                      (6, 3, torch.float32, 2, "independent"),
+                                      (40, 3, torch.bfloat16, 3, "independent"),
+                                      (32, 4, torch.bfloat16, 3, "smooth"),
+                                      (48, 3, torch.bfloat16, 2, "smooth")):
+        f1, pooled, flow = draw(2, 13, 17, c, levels, dtype, kind, 20.0 if kind == "independent" else 6.0)
+        err, vs_plain, vs_exact, shares = compare(f1, pooled, flow, r)
+        edges = window_edges(flow, r, [p.shape[1:3] for p in pooled], 0)
+        log(f"{name} ragged 2x13x17 C={c} r={r} L={levels} {dtype} {kind}: max |kernel - plain| = {err:.3e} "
+            f"= {vs_plain:.3e} scale, |kernel - f32| = {vs_exact:.3e} scale; tensor-path tiles per level "
+            f"{[round(x, 3) for x in shares]}; plane edges straddled (l, r, t, b) per level {edges}")
         lim_plain, lim_exact = (1e-5, 1e-5) if dtype == torch.float32 else (1.01 * 2**-7, 1.01 * 2**-8)
         if not (vs_plain <= lim_plain and vs_exact <= lim_exact):
             raise AssertionError(f"{name} disagrees on a ragged shape: {vs_plain} {vs_exact}")
+        if kind == "smooth" and not (min(shares) > 0 and any(any(e) for e in edges)):
+            raise AssertionError(f"{name}: the ragged smooth draw misses the tensor path or the plane "
+                                 f"edges: {shares} {edges}")
 
     c, r = FEATURE_DIM, 4
     side = 2 * r + 2
-    # The path's shapes, the untiled window's last: the timings below use it.
-    for (b, h, w), levels in ([also] if also else []) + [(UNTILED_QUERIES, 4)]:
-        f1, pooled, flow = draw(b, h, w, c, levels, torch.bfloat16, 40.0)
-        err, vs_plain, vs_exact = compare(f1, pooled, flow, r)
-        log(f"{name} [{b},{h * w},{c}] r={r} L={levels} bf16: max |kernel - plain| = {err:.3e} = {vs_plain:.3e} "
-            f"scale (limit 2^-7), max |kernel - f32| = {vs_exact:.3e} scale (limit 2^-8)")
+    fields, worst = {}, 0.0
+    for (b, h, w), levels, kind in ([(*also, "independent")] if also else []) + [
+            (UNTILED_QUERIES, 4, kind) for kind in ("small", "mixed", "independent", "smooth")]:
+        f1, pooled, flow = draw(b, h, w, c, levels, torch.bfloat16, kind)
+        err, vs_plain, vs_exact, shares = compare(f1, pooled, flow, r)
+        worst = max(worst, err)
+        log(f"{name} [{b},{h * w},{c}] r={r} L={levels} bf16 {kind}: max |kernel - plain| = {err:.3e} = "
+            f"{vs_plain:.3e} scale (limit 2^-7), max |kernel - f32| = {vs_exact:.3e} scale (limit 2^-8); "
+            f"tensor-path tiles per level {[round(x, 4) for x in shares]}")
         if not (vs_plain <= 1.01 * 2**-7 and vs_exact <= 1.01 * 2**-8):
-            raise AssertionError(f"{name} disagrees at [{b},{h * w},{c}] L={levels}: {vs_plain} {vs_exact}")
+            raise AssertionError(f"{name} disagrees at [{b},{h * w},{c}] L={levels} {kind}: {vs_plain} {vs_exact}")
+        if (b, h, w) != UNTILED_QUERIES:
+            continue
+        # What each field is drawn to show, by the kernel's own rule.
+        if kind == "mixed" and not 0 < shares[0] < 1:
+            raise AssertionError(f"{name}: the mixed field runs one path only at level 0: {shares}")
+        if kind in ("smooth", "small") and shares[0] < 0.9:
+            raise AssertionError(f"{name}: only {shares[0]:.3f} of the {kind} field's level-0 tiles take "
+                                 f"the tensor path")
+        if kind in ("independent", "smooth"):
+            fields[kind] = time_corr_patch(wrapper, plain, f1, pooled, flow, r, shares)
+        del f1, pooled, flow
+    row = {
+        "name": name, "route": "cuda", "source": "tpuflow_torch/csrc/corr_patch.cu",
+        "replaces": replaces, "max_abs_err": worst, "library_ms": None,
+        "flows": "smooth", **{k: fields["smooth"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "fields": fields,
+    }
+    return row
 
-    # One lookup = one launch per level.  Least bytes for this run's data: f1
-    # once, each target row some patch touches once, the indices, the output.
+
+def time_corr_patch(wrapper, plain, f1, pooled, flow, r, shares) -> dict:
+    """One 4-level lookup (one launch per level) through the kernel and the
+    plain version, with its bound.  Least bytes for this run's data: f1
+    once, each target row some patch touches once, the indices, the
+    output."""
+    b, h, w, _ = flow.shape
+    c, side = f1.shape[2], 2 * r + 2
     geo = [patch_geometry(flow, lvl, p.shape[1], p.shape[2], r) for lvl, p in enumerate(pooled)]
     n = b * h * w
     nbytes = f1.numel() * 2
     for (rr, cc), f2l in zip(geo, pooled):
-        touched = torch.zeros(f2l.shape[:3], dtype=torch.bool, device=dev)
-        bidx = torch.arange(b, device=dev)[:, None, None, None]
+        touched = torch.zeros(f2l.shape[:3], dtype=torch.bool, device=f1.device)
+        bidx = torch.arange(b, device=f1.device)[:, None, None, None]
         touched[bidx, rr.long()[:, :, :, None], cc.long()[:, :, None, :]] = True
         nbytes += int(touched.sum().item()) * c * 2 + 2 * rr.numel() * 4 + n * side * side * 2
-    flops = 2.0 * c * side * side * n * levels
+    flops = 2.0 * c * side * side * n * len(pooled)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
 
-    def lookup(fn):
-        return [fn(f1, f2l, rr, cc) for (rr, cc), f2l in zip(geo, pooled)]
+    def lookup(fn, **kw):
+        return [fn(f1, f2l, rr, cc, **kw) for (rr, cc), f2l in zip(geo, pooled)]
 
-    ms = time_ms(lambda: lookup(wrapper), reps=10)
+    # Four launches of ~0.1 ms each cost about as much on the host as on the
+    # card, so the lookups are queued behind a sleep and timed on the card.
+    ms = time_ms(lambda: lookup(wrapper, grid_w=w), reps=10, queued=True)
+    per_level = [time_ms(lambda: wrapper(f1, f2l, rr, cc, grid_w=w), reps=10, queued=True)
+                 for (rr, cc), f2l in zip(geo, pooled)]
     plain_ms = time_ms(lambda: lookup(plain), reps=2, warmup=1)
-    log(f"{name} ms {ms:.4f} per lookup ({levels} launches)  plain {plain_ms:.4f}  no single library call  "
-        f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
-    return {
-        "name": name, "route": "cuda", "source": "tpuflow_torch/csrc/corr_patch.cu",
-        "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations",
-        "library_ms": None,
-    }
+    log(f"{wrapper.__name__} ms {ms:.4f} per lookup ({len(pooled)} launches; per level "
+        f"{[round(t, 4) for t in per_level]})  plain {plain_ms:.4f}  "
+        f"no single library call  bound {bound:.4f} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+    return {"ms": ms, "ms_per_level": per_level, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations",
+            "tensor_path_share_per_level": shares}
 
 
 def check_volume_patch(dev, layout: str) -> dict:
@@ -635,8 +740,9 @@ def stage_times(engine, frames: np.ndarray):
 
 
 def profile_refine(model, enc) -> dict:
-    """Device time of one refinement by kernel name (torch.profiler), and
-    the share of the refinement's wall time the device was busy."""
+    """Device time of one refinement by kernel name (torch.profiler), the
+    share of the refinement's wall time the device was busy, and the device
+    time and launches of the correlation-patch kernels (K3/K5)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -658,7 +764,12 @@ def profile_refine(model, enc) -> dict:
         f"device busy {busy:.1f} ms = {100 * busy / wall_ms:.1f} %")
     for ms, count, key in rows[:16]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f} % {count:5d}x  {key[:100]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy}
+    patch = [(ms, count) for ms, count, key in rows if "corr_patch" in key]
+    patch_ms, patch_calls = sum(r[0] for r in patch), sum(r[1] for r in patch)
+    if patch:
+        log(f"  corr_patch kernels: {patch_ms:.2f} ms over {patch_calls} launches")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "corr_patch_ms": patch_ms,
+            "corr_patch_launches": patch_calls}
 
 
 def reset_launches(kernels) -> None:

@@ -35,6 +35,7 @@ from tpuflow_torch.core.mofnet import MOFNet
 from tpuflow_torch.kernels.bandlookup import band_patch_level
 from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
 from tpuflow_torch.kernels.flashcorr import flash_patch_level
+from tpuflow_torch.kernels import flashcorr2 as tflashcorr2
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level, flash2_patch_level_plain
 
 B, H, W, C, LEVELS = 2, 16, 24, 32, 3
@@ -256,10 +257,10 @@ def as_int32(x):
     return torch.from_numpy(np.asarray(x)).to(torch.int32)
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("which", ["flash2", "flash"])
-@pytest.mark.parametrize("level,radius", [(0, 4), (1, 3)])
-def test_corr_patch_wrappers_match_jax_kernels(which, dt, level, radius):
+@functools.lru_cache(maxsize=None)
+def jax_corr_patch(which: str, dt: str, level: int, radius: int):
+    """(JAX kernel's patch in interpret mode as f32 numpy, pooled f2 level as
+    f32 numpy, rr, cc) for one (kernel, dtype, level, radius)."""
     f1, f2 = features(dt)
     rr, cc, lh, lw = patch_indices(level, radius)
     jf2 = to_jax(f2, dt)
@@ -269,14 +270,24 @@ def test_corr_patch_wrappers_match_jax_kernels(which, dt, level, radius):
     jf1 = to_jax(f1, dt).reshape(B, H * W, C)
     if which == "flash2":
         ref = jax_flash2_patch_level(jf1, pack_f2_level(jf2), rr, cc, lh=lh, lw=lw, side=side, interpret=True)
-        fn = flash2_patch_level
     else:
         ref = jax_flash_patch_level(jf1, pad_f2_level(jf2), rr, cc, lh=lh, lw=lw, side=side, interpret=True)
-        fn = flash_patch_level
-    tf2 = to_torch(np.asarray(jf2.astype(jnp.float32)), dt)
-    got = fn(to_torch(f1, dt).reshape(B, H * W, C), tf2, as_int32(rr), as_int32(cc))
+    return np.asarray(ref.astype(jnp.float32)), np.asarray(jf2.astype(jnp.float32)), rr, cc
+
+
+@pytest.mark.parametrize("grid_w", [None, W], ids=["one_row", "grid"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("which", ["flash2", "flash"])
+@pytest.mark.parametrize("level,radius", [(0, 4), (1, 3)])
+def test_corr_patch_wrappers_match_jax_kernels(which, dt, level, radius, grid_w):
+    """Each wrapper, with and without the query grid's width, against its
+    JAX kernel in interpret mode."""
+    f1, _ = features(dt)
+    ref, f2l, rr, cc = jax_corr_patch(which, dt, level, radius)
+    side = 2 * radius + 2
+    fn = flash2_patch_level if which == "flash2" else flash_patch_level
+    got = fn(to_torch(f1, dt).reshape(B, H * W, C), to_torch(f2l, dt), as_int32(rr), as_int32(cc), grid_w=grid_w)
     assert got.dtype == TDT[dt] and tuple(got.shape) == (B, H * W, side, side)
-    ref = np.asarray(ref.astype(jnp.float32))
     # f32 sums of 32 products in another order; bf16: the same f32 sum
     # rounded once, one ulp apart where it sits on a rounding boundary.
     tol = 1e-5 if dt == "f32" else 2.0**-7 * max(1.0, float(np.abs(ref).max()))
@@ -364,3 +375,97 @@ def test_patch_wrappers_reject_bad_inputs():
         band_patch_level(torch.zeros(1, 2, 5, 3), rr, cc)          # Nq mismatch
     with pytest.raises(ValueError):
         dense_lookup([torch.zeros(12, 3, 4)], torch.zeros(1, 3, 4, 2), 1, level_offset=-1)
+
+
+@pytest.mark.parametrize("grid_w", [5, 7, 0, -W, H * W + 1, 24.0])
+@pytest.mark.parametrize("fn", [flash2_patch_level, flash_patch_level], ids=["flash2", "flash"])
+def test_corr_patch_wrappers_refuse_bad_grid_width(fn, grid_w):
+    """A grid width must be a positive int that divides Nq = 384."""
+    f1, f2 = torch.zeros(B, H * W, 8), torch.zeros(B, 3, 4, 8)
+    rr = cc = torch.zeros(B, H * W, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="grid_w"):
+        fn(f1, f2, rr, cc, grid_w=grid_w)
+    for ok in (None, 1, W, H, H * W):
+        assert tuple(fn(f1, f2, rr, cc, grid_w=ok).shape) == (B, H * W, 4, 4)
+
+
+@pytest.mark.parametrize("name,attr", [("flash2", "flash2_patch_level"), ("flash_all", "flash_patch_level")])
+def test_recomputed_lookup_passes_grid_width(monkeypatch, name, attr):
+    """FlashCorr2 and FlashCorr hand each level's kernel call fmap1's grid
+    width, and their lookups stay the JAX classes' (the bf16 patch through
+    the same plain version)."""
+    seen = []
+    kernel = getattr(tcorr, attr)
+
+    def spy(f1, f2l, rr, cc, **kw):
+        seen.append((tuple(f1.shape), kw))
+        return kernel(f1, f2l, rr, cc, **kw)
+
+    monkeypatch.setattr(tcorr, attr, spy)
+    flow = flows(6.0)
+    f1, f2 = (to_torch(x, "bf16") for x in features("bf16"))
+    got = CLASSES[name][1](f1, f2).lookup(torch.from_numpy(flow), 4).numpy()
+    assert seen == [((B, H * W, C), {"grid_w": W})] * LEVELS
+    ref = np.asarray(jax_lookup(name, "bf16", 4)(jnp.asarray(flow)))
+    assert np.abs(got - ref).max() <= BF16_TOL * max(1.0, float(np.abs(ref).max()))
+
+
+def brute_force_boxes(rr: np.ndarray, cc: np.ndarray, gh: int, gw: int) -> np.ndarray:
+    """Pixels of the bounding box of the union of every patch index pair
+    (rr[q, i], cc[q, j]) over each 4 x 8 tile's queries on the grid."""
+    b = rr.shape[0]
+    th, tw = tflashcorr2.TILE_ROWS, tflashcorr2.TILE_COLS
+    out = np.zeros((b, -(-gh // th), -(-gw // tw)), np.int64)
+    for bi in range(b):
+        for ty in range(out.shape[1]):
+            for tx in range(out.shape[2]):
+                pix = {(r, c) for y in range(ty * th, min(gh, ty * th + th))
+                       for x in range(tx * tw, min(gw, tx * tw + tw))
+                       for r in rr[bi, y * gw + x] for c in cc[bi, y * gw + x]}
+                ys, xs = [p[0] for p in pix], [p[1] for p in pix]
+                out[bi, ty, tx] = (max(ys) - min(ys) + 1) * (max(xs) - min(xs) + 1)
+    return out
+
+
+@pytest.mark.parametrize("sigma", [0.5, 3.0, 30.0], ids=["small", "moderate", "edges"])
+@pytest.mark.parametrize("gh,gw,level", [(13, 17, 0), (13, 17, 2), (5, 9, 1), (1, 23, 0), (4, 8, 0), (9, 40, 0)])
+def test_tile_path_rule_matches_brute_force(gh, gw, level, sigma):
+    """The host copy of the kernel's path rule (tile_boxes, tensor_path_tiles)
+    against the union of each tile's patch indices, on ragged grids and with
+    patches clamped at the plane's edges."""
+    from tpuflow_torch.core.corr import _base_coords, _radius_patch_indices, pyramid_level_dims
+
+    rng = np.random.default_rng(gh * 100 + gw + level)
+    flow = torch.from_numpy(rng.normal(0, sigma, (2, gh, gw, 2)).astype(np.float32))
+    lh, lw = pyramid_level_dims(gh, gw, level)
+    idx = _radius_patch_indices(*_base_coords(flow), level, lh, lw, 3)
+    got = tflashcorr2.tile_boxes(idx.rr, idx.cc, gw, lh, lw)
+    want = brute_force_boxes(idx.rr.numpy(), idx.cc.numpy(), gh, gw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.max() <= lh * lw
+    np.testing.assert_array_equal(tflashcorr2.tensor_path_tiles(idx.rr, idx.cc, gw, lh, lw).numpy(),
+                                  want <= tflashcorr2.MAX_BOX_PIXELS)
+
+
+def test_tile_path_rule_takes_large_boxes_off_the_tensor_path():
+    """Independent +-40-cell flows give boxes beyond MAX_BOX_PIXELS at level
+    0 of a 64 x 96 grid; zero flow gives the 4 x 8 tile's 11 x 15 box."""
+    from tpuflow_torch.core.corr import _base_coords, _radius_patch_indices
+
+    gh, gw = 64, 96
+    flow = torch.from_numpy(np.random.default_rng(1).uniform(-40, 40, (1, gh, gw, 2)).astype(np.float32))
+    idx = _radius_patch_indices(*_base_coords(flow), 0, gh, gw, 4)
+    assert not tflashcorr2.tensor_path_tiles(idx.rr, idx.cc, gw, gh, gw).any()
+    idx = _radius_patch_indices(*_base_coords(torch.zeros(1, gh, gw, 2)), 0, gh, gw, 4)
+    boxes = tflashcorr2.tile_boxes(idx.rr, idx.cc, gw, gh, gw)
+    assert boxes[0, 5, 5].item() == (4 + 9) * (8 + 9)
+    assert tflashcorr2.tensor_path_tiles(idx.rr, idx.cc, gw, gh, gw).all()
+
+
+@pytest.mark.parametrize("dtype,c,want", [(torch.bfloat16, 256, True), (torch.bfloat16, 32, True),
+                                          (torch.bfloat16, 48, True), (torch.bfloat16, 40, False),
+                                          (torch.bfloat16, 512, False), (torch.float32, 256, False)])
+def test_takes_tiles(dtype, c, want):
+    """bf16 with whole 16-channel steps up to 256 channels runs tiles; f32
+    and other widths take the per-query path."""
+    assert tflashcorr2.takes_tiles(dtype, c) is want

@@ -351,11 +351,12 @@ class OnTheFlyCorr:
 
 def _recomputed_lookup(kernel, fmap1, pooled, flow, radius: int) -> torch.Tensor:
     """Lookup through a recomputed-correlation kernel (K3 or K5) against the
-    pooled target features of each level."""
+    pooled target features of each level; the kernel learns the query
+    grid's width, w, for its tiles."""
     b, h, w, c = fmap1.shape
     f1 = fmap1.reshape(b, h * w, c)
     dims = [(p.shape[1], p.shape[2]) for p in pooled]
-    return _patch_lookup(lambda f2l, rr, cc: kernel(f1, f2l, rr, cc), pooled, dims, flow, radius)
+    return _patch_lookup(lambda f2l, rr, cc: kernel(f1, f2l, rr, cc, grid_w=w), pooled, dims, flow, radius)
 
 
 class FlashCorr:

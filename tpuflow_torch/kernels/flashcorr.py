@@ -14,6 +14,8 @@ FlashCorr (corr_impl='flash') and counts its own launches.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .flashcorr2 import corr_patch, flash2_patch_level_plain
@@ -24,12 +26,14 @@ flash_patch_level_plain = flash2_patch_level_plain
 
 
 def flash_patch_level(
-    f1: torch.Tensor, f2l: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor
+    f1: torch.Tensor, f2l: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
+    *, grid_w: Optional[int] = None,
 ) -> torch.Tensor:
     """f1 [B, Nq, C], f2l [B, lh, lw, C] (one dtype, bf16 or f32), clamped rr,
-    cc [B, Nq, side] int32 -> patch [B, Nq, side, side] in f1's dtype.  CPU
-    tensors: the plain version; CUDA tensors: the kernel."""
-    return corr_patch(flash_patch_level, flash_patch_level_plain, f1, f2l, rr, cc)
+    cc [B, Nq, side] int32 -> patch [B, Nq, side, side] in f1's dtype.  The
+    queries form a grid of width grid_w (must divide Nq; None: one row).
+    CPU tensors: the plain version; CUDA tensors: the kernel."""
+    return corr_patch(flash_patch_level, flash_patch_level_plain, f1, f2l, rr, cc, grid_w)
 
 
 flash_patch_level.launches = 0

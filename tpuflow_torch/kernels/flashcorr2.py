@@ -11,15 +11,20 @@ materialized volume would hold there, without the volume.
 `flash2_patch_level` launches csrc/corr_patch.cu for CUDA tensors and runs
 `flash2_patch_level_plain` for CPU tensors.
 
-The TPU kernel reads phase-packed target rows (`pack_f2_level`) and skips
-chunks no query of a block touches; both serve Mosaic's one-hot gather.  The
-port stores each level unpacked and computes only the patch's dots.
+The queries of an image form a grid [Nq / grid_w, grid_w].  In bf16 the
+kernel takes 4 x 8 tiles of that grid and, where a tile's patches fall in a
+box of at most MAX_BOX_PIXELS target pixels, computes the tile's
+correlations with that whole box on the tensor cores; `tile_boxes` and
+`tensor_path_tiles` apply the kernel's rule on the host, for logging and
+tests.  The TPU kernel's phase-packed rows (`pack_f2_level`) serve Mosaic's
+one-hot gather; the port stores each level unpacked.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -28,6 +33,13 @@ from .denselookup import check_patch_indices
 
 MAX_SIDE = 16          # both index vectors of a query fit one warp
 MAX_CHANNELS = 1536    # 8 queries' features as f32 in 48 KB of shared memory
+# The tile kernel's constants (csrc/corr_patch.cu kTileH, kTileW, kMaxBox,
+# kMaxTensorC): bf16 with C a multiple of 16 up to TENSOR_MAX_CHANNELS runs
+# in TILE_ROWS x TILE_COLS query tiles, and a tile whose box holds at most
+# MAX_BOX_PIXELS pixels takes the tensor-core path.
+TILE_ROWS, TILE_COLS = 4, 8
+MAX_BOX_PIXELS = 1024
+TENSOR_MAX_CHANNELS = 256
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -55,23 +67,55 @@ def flash2_patch_level_plain(
     return out
 
 
+def takes_tiles(dtype: torch.dtype, c: int) -> bool:
+    """Whether the kernel runs query tiles (and so the tensor path) for
+    features of this dtype and channel count; otherwise every query takes
+    the per-query path."""
+    return dtype == torch.bfloat16 and c % 16 == 0 and c <= TENSOR_MAX_CHANNELS
+
+
+def tile_boxes(rr: torch.Tensor, cc: torch.Tensor, grid_w: int, lh: int, lw: int) -> torch.Tensor:
+    """Pixels of each tile's union box [B, tiles_y, tiles_x]: the kernel's
+    rule on the host.  rr, cc [B, Nq, side] are clamped to the lh x lw plane
+    as the kernel clamps them; the box spans the min to the max row and
+    column over the tile's queries that lie on the grid."""
+    b, nq, side = rr.shape
+    gh = nq // grid_w
+    ty, tx = -(-gh // TILE_ROWS), -(-grid_w // TILE_COLS)
+    pad = (0, 0, 0, tx * TILE_COLS - grid_w, 0, ty * TILE_ROWS - gh)
+
+    def span(idx, hi):
+        v = idx.clamp(0, hi - 1).reshape(b, gh, grid_w, side)
+        lo = torch.nn.functional.pad(v, pad, value=hi).reshape(b, ty, TILE_ROWS, tx, TILE_COLS, side)
+        up = torch.nn.functional.pad(v, pad, value=-1).reshape(b, ty, TILE_ROWS, tx, TILE_COLS, side)
+        return up.amax(dim=(2, 4, 5)) - lo.amin(dim=(2, 4, 5)) + 1
+
+    return span(rr, lh) * span(cc, lw)
+
+
+def tensor_path_tiles(rr: torch.Tensor, cc: torch.Tensor, grid_w: int, lh: int, lw: int) -> torch.Tensor:
+    """Which tiles [B, tiles_y, tiles_x] take the tensor-core path (for
+    features where `takes_tiles` holds)."""
+    return tile_boxes(rr, cc, grid_w, lh, lw) <= MAX_BOX_PIXELS
+
+
 def _lib():
     fn = library("corr_patch").tf_corr_patch
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def corr_patch(wrapper, plain, f1, f2l, rr, cc) -> torch.Tensor:
+def corr_patch(wrapper, plain, f1, f2l, rr, cc, grid_w: Optional[int] = None) -> torch.Tensor:
     """Checks and dispatch shared by the two wrappers of csrc/corr_patch.cu
     (`flash2_patch_level` here, `flash_patch_level` in flashcorr.py):
     `plain` for CPU tensors, the kernel for CUDA tensors, counted on
-    `wrapper`."""
+    `wrapper`.  grid_w: the width of the query grid (None: one row of Nq)."""
     name = wrapper.__name__
     if f1.dim() != 3 or f2l.dim() != 4 or f2l.shape[0] != f1.shape[0] or f2l.shape[3] != f1.shape[2]:
         raise ValueError(
@@ -87,6 +131,9 @@ def corr_patch(wrapper, plain, f1, f2l, rr, cc) -> torch.Tensor:
     side = rr.shape[2]
     if tuple(rr.shape[:2]) != (b, nq) or not 1 <= side <= MAX_SIDE:
         raise ValueError(f"{name}: rr {tuple(rr.shape)}: expected [{b}, {nq}, side <= {MAX_SIDE}]")
+    grid_w = nq if grid_w is None else grid_w
+    if not (isinstance(grid_w, int) and grid_w >= 1 and nq % grid_w == 0):
+        raise ValueError(f"{name}: grid_w = {grid_w!r} does not divide Nq = {nq}")
     if f1.device.type == "cpu":
         return plain(f1, f2l, rr, cc)
     if f1.device.type != "cuda":
@@ -102,7 +149,7 @@ def corr_patch(wrapper, plain, f1, f2l, rr, cc) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             _DTYPE_CODES[f1.dtype], f1.data_ptr(), f2l.data_ptr(), rr.data_ptr(), cc.data_ptr(),
-            out.data_ptr(), b * nq, nq, lh, lw, c, side, 1.0 / math.sqrt(c), stream,
+            out.data_ptr(), b * nq, nq, grid_w, lh, lw, c, side, 1.0 / math.sqrt(c), stream,
         )
     check_launch(rc, name)
     wrapper.launches += 1
@@ -110,12 +157,14 @@ def corr_patch(wrapper, plain, f1, f2l, rr, cc) -> torch.Tensor:
 
 
 def flash2_patch_level(
-    f1: torch.Tensor, f2l: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor
+    f1: torch.Tensor, f2l: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
+    *, grid_w: Optional[int] = None,
 ) -> torch.Tensor:
     """f1 [B, Nq, C], f2l [B, lh, lw, C] (one dtype, bf16 or f32), clamped rr,
-    cc [B, Nq, side] int32 -> patch [B, Nq, side, side] in f1's dtype.  CPU
-    tensors: the plain version; CUDA tensors: the kernel."""
-    return corr_patch(flash2_patch_level, flash2_patch_level_plain, f1, f2l, rr, cc)
+    cc [B, Nq, side] int32 -> patch [B, Nq, side, side] in f1's dtype.  The
+    queries form a grid of width grid_w (must divide Nq; None: one row).
+    CPU tensors: the plain version; CUDA tensors: the kernel."""
+    return corr_patch(flash2_patch_level, flash2_patch_level_plain, f1, f2l, rr, cc, grid_w)
 
 
 flash2_patch_level.launches = 0
