@@ -16,13 +16,26 @@
 # Prints a line "UNTILED <tree> <wall s> <refine ms> <K3 device ms>
 # <K3 launches> <busy ms>".
 #
+# Patch mode (--patch): one 'patch' (DenseCorrPyramid, K4) and one 'band'
+# (BandCorrPyramid, K6) lookup at the tile shape (6 x 135x120 queries, 4
+# random bf16 levels, r = 4, flows of +-40 px, seeded): the patch kernel's
+# calls for the 4 levels (one call of the all-levels entry where the tree
+# has one, else one call per level) and the whole lookup, each timed on the
+# device (queued behind a sleep) and on the host clock (CUDA events around
+# calls on an idle card), then one lookup under torch.profiler.  Prints its
+# largest kernels and a line "PATCH <tree> <layout> <kernel device ms>
+# <kernel host ms> <lookup device ms> <lookup host ms> <lookup busy ms>
+# <patch-kernel device ms> <patch-kernel launches>".
+#
 #     git archive <commit> | tar -x -C archive_check/parent   # a gitignored dir
 #     bash chip_compare.sh archive_check/parent               # from the repository root
 #     bash chip_compare.sh --untiled archive_check/parent
+#     bash chip_compare.sh --patch archive_check/parent
 set -u
 mode=tiled
 if [ "${1:-}" = --untiled ]; then mode=untiled; shift; fi
-other=${1:?usage: bash chip_compare.sh [--untiled] <directory holding another tree of the repository>}
+if [ "${1:-}" = --patch ]; then mode=patch; shift; fi
+other=${1:?usage: bash chip_compare.sh [--untiled | --patch] <directory holding another tree of the repository>}
 drive_tiled='
 import sys, chip_smoke as cs
 cs.phase_environment()
@@ -79,9 +92,63 @@ for ev in prof.key_averages():
             print(f"  {us / 1e3:9.2f} ms {ev.count:5d}x  {ev.key[:100]}")
 print("UNTILED", sys.argv[1], wall, t_ref * 1e3, k3_ms, k3_n, busy)
 '
+# Only what both trees share: chip_smoke.time_ms (with queued=), random_volumes
+# and TILE_QUERIES, the correlation classes and their geometry helpers, and
+# the one-level patch wrappers.
+drive_patch='
+import sys, torch, chip_smoke as cs
+from torch.profiler import ProfilerActivity, profile
+cs.phase_environment()
+from tpuflow_torch.core import corr as tc
+from tpuflow_torch.kernels import bandlookup as bl, denselookup as dl
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(cs.SEED + 4)
+(b, h, w), r = cs.TILE_QUERIES, 4
+flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 80.0 - 40.0).contiguous()
+vols = cs.random_volumes(g, dev, b * h * w, h, w, 4, torch.bfloat16)
+for layout in ("flat", "band"):
+    if layout == "flat":
+        corr, one, many = tc.DenseCorrPyramid(vols), dl.dense_patch_level, getattr(dl, "dense_patch_levels", None)
+        dims = [(v.shape[1], v.shape[2]) for v in vols]
+        lookup = lambda: corr.lookup(flow, r, impl="patch")
+    else:
+        corr = None
+        vols = [v.reshape(b, h * w, *v.shape[1:]).transpose(1, 2).contiguous() for v in vols]
+        corr, one, many = tc.BandCorrPyramid(vols), bl.band_patch_level, getattr(bl, "band_patch_levels", None)
+        dims = [(v.shape[1], v.shape[3]) for v in vols]
+        lookup = lambda: corr.lookup(flow, r)
+    bx, by = tc._base_coords(flow)
+    idx = [tc._radius_patch_indices(bx, by, l, lh, lw, r) for l, (lh, lw) in enumerate(dims)]
+    rrs, ccs = [i.rr for i in idx], [i.cc for i in idx]
+    if many is not None:
+        kernel = lambda: many(vols, rrs, ccs)
+    else:
+        kernel = lambda: [one(v, rr, cc) for v, rr, cc in zip(vols, rrs, ccs)]
+    with torch.inference_mode():
+        times = [cs.time_ms(fn, reps=20, queued=q) for fn in (kernel, lookup) for q in (True, False)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lookup()
+            torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    for ms, n, key in rows[:8]:
+        print(f"  {layout} {ms:8.4f} ms {n:4d}x  {key[:90]}")
+    patch = [(ms, n) for ms, n, key in rows if "volume_patch" in key]
+    print("PATCH", sys.argv[1], layout, *times, sum(x[0] for x in rows), sum(x[0] for x in patch),
+          sum(x[1] for x in patch))
+'
 drive=$drive_tiled; pattern="^card|^E2E|^end to end|^profile of|flash_fwd|dense_lookup_kernel|Error|Traceback"
 if [ $mode = untiled ]; then
     drive=$drive_untiled; pattern="^card|^UNTILED|corr_patch|Error|Traceback"
+fi
+if [ $mode = patch ]; then
+    drive=$drive_patch; pattern="^card|^PATCH|^  (flat|band) |Error|Traceback"
 fi
 log=$(mktemp)
 trap 'rm -f "$log"' EXIT

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and eight deliberately broken, and prints for each copy whether each phase
+# and eleven deliberately broken, and prints for each copy whether each phase
 # passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
@@ -19,7 +19,13 @@
 #              skipped                     -> K3's kernel check fails
 #   k3rule     corr_patch.cu: boxes of up to 4x the cap sent to the tensor
 #              path, whose S holds only the cap -> K3's kernel check fails
-# The unbroken copy must pass all five phases.  Needs one CUDA card and
+#   k4word     csrc/volume_patch.cu: the word loads of each patch row one
+#              word off                   -> K4's and K6's checks fail
+#   k4last     volume_patch.cu: the last query of every run not stored
+#                                         -> K4's and K6's checks fail
+#   k4level    volume_patch.cu: the all-levels entry handing level l the
+#              row indices of level l - 1 -> K4's and K6's checks fail
+# The unbroken copy must pass all seven phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh        # from the repository root
@@ -49,7 +55,8 @@ if "formulations" in phases or "untiled" in phases:
 runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "untiled": lambda: cs.phase_untiled(engine, kernels),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
-        "k3": lambda: cs.check_corr_patch(dev, *k3)}
+        "k3": lambda: cs.check_corr_patch(dev, *k3),
+        "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band")}
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level as k3f, flash2_patch_level_plain as k3p
 k3 = (k3f, k3p, "tpuflow/kernels/flashcorr2.py:246")
 for name in phases:
@@ -62,7 +69,7 @@ for name in phases:
 '
 
 status=0
-for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule; do
+for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
     cp -r "$root/chip_smoke.py" "$root/tpuflow_torch" "$work/copy/"
@@ -70,7 +77,7 @@ for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3 ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6 ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -87,11 +94,17 @@ for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule
                    sed -i 's/    for (; k + 16 < C; k += 32) {/    for (; k + 48 < C; k += 32) {/' $edited ;;
         k3rule)    phases=k3; edited=tpuflow_torch/csrc/corr_patch.cu
                    sed -i 's/const bool tensor = npix <= kMaxBox;/const bool tensor = npix <= 4 * kMaxBox;/' $edited ;;
+        k4word)    phases=k4,k6; edited=tpuflow_torch/csrc/volume_patch.cu
+                   sed -i 's/v\[u\] = __ldg(reinterpret_cast<const uint32_t\*>(s_addr\[t\]) + g);/v[u] = __ldg(reinterpret_cast<const uint32_t*>(s_addr[t]) + g + 1);/' $edited ;;
+        k4last)    phases=k4,k6; edited=tpuflow_torch/csrc/volume_patch.cu
+                   sed -i 's/const int nwords = nrows \* words;/const int nwords = (nrows - side) * words;/' $edited ;;
+        k4level)   phases=k4,k6; edited=tpuflow_torch/csrc/volume_patch.cu
+                   sed -i 's/lv.rr\[l\] = rrs\[l\];/lv.rr[l] = rrs[l > 0 ? l - 1 : 0];/' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

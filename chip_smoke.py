@@ -21,8 +21,11 @@ prints no result lines):
    independent, smooth, small and mixed flow fields, with the share of
    query tiles that take its tensor-core path, K5 also at level 0 of the
    tile shape, both against an f32 reference; the
-   volume-patch kernel (K4 flat layout, K6 band layout) at the tile shape,
-   bit for bit; each also on ragged shapes.
+   volume-patch kernel (K4 flat layout, K6 band layout) bit for bit through
+   its one-level and its all-levels entry, at radius 0, 1, 4 and 14 with
+   patches across every plane edge, at the tile shape (timed on the device
+   and on the host clock), and on a 4.5 GB level read beyond element 2^31;
+   each also on ragged shapes.
 4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
    synthetic 1920x1080 frames at the full configuration (Twins-SVT, 4
    levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
@@ -37,7 +40,9 @@ prints no result lines):
 7. formulations: corr_impl 'flash' (K5 + K1 sidecar), 'band' (K6) and
    dense_lookup='patch' (K4) through MOFNet at the tile shape with 2
    iterations, each against corr_impl='dense' at the same depth, with
-   launch counters.
+   launch counters, timed as the median of 3 calls after a warm-up; one
+   'patch' and one 'band' lookup profiled by part (geometry, kernel,
+   epilogue, concat).
 8. parity: one small clip through the same engine weights in f32 with TF32
    off, on the CPU (plain versions) and on the card (kernels): tiled, and
    one untiled window above the materialization threshold (FlashCorr2).
@@ -625,46 +630,114 @@ def time_corr_patch(wrapper, plain, f1, pooled, flow, r, shares) -> dict:
             "tensor_path_share_per_level": shares}
 
 
+def volume_patch_fns(layout: str):
+    """(one-level wrapper, its plain version, all-levels wrapper, its plain
+    version, the TPU kernel it replaces) of K4 (layout 'flat') or K6
+    ('band')."""
+    from tpuflow_torch.kernels import bandlookup as bl, denselookup as dl
+
+    if layout == "flat":
+        return (dl.dense_patch_level, dl.dense_patch_level_plain, dl.dense_patch_levels,
+                dl.dense_patch_levels_plain, "tpuflow/kernels/denselookup.py:156")
+    return (bl.band_patch_level, bl.band_patch_level_plain, bl.band_patch_levels,
+            bl.band_patch_levels_plain, "tpuflow/kernels/bandlookup.py:184")
+
+
+def check_patch_entries(name: str, one, one_plain, levels_fn, levels_plain, vols, geo, what: str) -> None:
+    """Each level through the one-level wrapper and all levels through one
+    launch of the all-levels wrapper, each bitwise against its plain
+    version."""
+    rrs, ccs = [rr for rr, _ in geo], [cc for _, cc in geo]
+    got_all, ref_all = levels_fn(vols, rrs, ccs), levels_plain(vols, rrs, ccs)
+    for lvl, (vol, (rr, cc)) in enumerate(zip(vols, geo)):
+        got = one(vol, rr, cc)
+        torch.cuda.synchronize()
+        for entry, out in (("one-level", got), ("all-levels", got_all[lvl])):
+            if out.dtype != vol.dtype or not torch.equal(out, ref_all[lvl]):
+                bad = (out != ref_all[lvl]).reshape(-1, rr.shape[2] ** 2).any(dim=1).nonzero()
+                raise AssertionError(f"{name} ({entry} entry) is not bitwise equal to its plain version at "
+                                     f"level {lvl} {tuple(vol.shape)} {vol.dtype}, {what}: queries "
+                                     f"{bad[:8, 0].tolist()} of {bad.shape[0]} differ")
+
+
+def volume_patch_draw(g, dev, layout: str, b, h, w, ph, pw, levels, dtype, r, flow_px):
+    """Random levels for b x h x w queries (planes ph x pw halved per level;
+    flat, or moved to the band layout), flows of +-flow_px, and each level's
+    clamped rr, cc: (vols, flow, plane dims, [(rr, cc)] per level)."""
+    vols = random_volumes(g, dev, b * h * w, ph, pw, levels, dtype)
+    if layout == "band":   # [B*Nq, lh, lw] -> [B, lh, Nq, lw]
+        vols = [v.reshape(b, h * w, *v.shape[1:]).transpose(1, 2).contiguous() for v in vols]
+    flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * flow_px
+    dims = [(v.shape[1], v.shape[-1]) for v in vols]
+    return vols, flow, dims, [patch_geometry(flow, lvl, lh, lw, r) for lvl, (lh, lw) in enumerate(dims)]
+
+
+def check_volume_patch_ragged(g, dev, layout: str) -> None:
+    """K4 (layout 'flat') or K6 ('band') through both entries on ragged
+    shapes: radius 0, 1, 4 and 14, in f32 and bf16, 3 x 7x11 = 231 queries
+    (no run of the kernel divides them but 1), or 2 x 9x11; flows of up to
+    1.5x the plane put patches across each edge of each level's plane
+    (asserted) and wholly off it, so each launch holds rows whose columns
+    are contiguous and rows whose columns are clamped (asserted); then
+    indices drawn anywhere in the plane, f32 and bf16."""
+    one, one_plain, levels_fn, levels_plain, _ = volume_patch_fns(layout)
+    name = one.__name__
+    for (b, h, w), (ph, pw), levels, dtype, r_ in (((3, 7, 11), (7, 11), 3, torch.float32, 0),
+                                                   ((3, 7, 11), (7, 11), 3, torch.bfloat16, 0),
+                                                   ((3, 7, 11), (9, 13), 2, torch.bfloat16, 1),
+                                                   ((3, 7, 11), (9, 13), 2, torch.float32, 1),
+                                                   ((3, 7, 11), (24, 31), 2, torch.bfloat16, 4),
+                                                   ((2, 9, 11), (24, 31), 3, torch.float32, 4),
+                                                   ((3, 7, 11), (64, 72), 2, torch.bfloat16, 14),
+                                                   ((3, 7, 11), (64, 72), 2, torch.float32, 14)):
+        side = 2 * r_ + 2
+        vols, flow, dims, geo = volume_patch_draw(g, dev, layout, b, h, w, ph, pw, levels, dtype, r_,
+                                                  1.5 * max(ph, pw))
+        edges = window_edges(flow, r_, dims, 0)
+        wide = [(cc[..., -1] - cc[..., 0] == side - 1).float().mean().item() for _, cc in geo]
+        if not all(all(e) for e in edges) or not any(0 < s < 1 for s in wide):
+            raise AssertionError(f"{name} ragged draw misses a plane edge or a mix of contiguous and "
+                                 f"clamped rows: edges {edges}, contiguous shares {wide}")
+        check_patch_entries(name, one, one_plain, levels_fn, levels_plain, vols, geo, f"r={r_}")
+        log(f"{name} ragged {b}x{h}x{w} r={r_} {dtype} planes {dims}: bitwise equal to its plain version "
+            f"(one-level and all-levels entries); share of queries with contiguous columns per level "
+            f"{[round(s, 3) for s in wide]}")
+    # Indices drawn anywhere in the plane, not a window: columns that span
+    # more than a patch side, which the kernel reads entry by entry.
+    for dtype in (torch.float32, torch.bfloat16):
+        vols, _, dims, _ = volume_patch_draw(g, dev, layout, 3, 7, 11, 24, 31, 2, dtype, 4, 1.0)
+        geo = [tuple(torch.randint(0, n, (3, 77, 10), generator=g, device=dev, dtype=torch.int32)
+                     for n in (lh, lw)) for lh, lw in dims]
+        scattered = [((cc.max(dim=2).values - cc.min(dim=2).values) >= 10).float().mean().item() for _, cc in geo]
+        if not min(scattered) > 0:
+            raise AssertionError(f"{name}: the scattered draw has no query whose columns span past a side")
+        check_patch_entries(name, one, one_plain, levels_fn, levels_plain, vols, geo, "scattered indices")
+        log(f"{name} scattered indices 3x7x11 side 10 {dtype} planes {dims}: bitwise equal to its plain version; "
+            f"share of queries whose columns span past a side per level {[round(x, 3) for x in scattered]}")
+
+
 def check_volume_patch(dev, layout: str) -> dict:
-    """The volume-patch kernel through K4 `dense_patch_level` (layout 'flat',
-    levels [B*Nq, lh, lw]) or K6 `band_patch_level` (layout 'band', levels
-    [B, lh, Nq, lw]): a copy of volume entries, so kernel and plain version
-    must be bitwise equal.  Ragged (2 x 9 x 11 queries, f32, r = 3, flows off
-    the plane), then the tile shape: 6 x 135x120 queries, 4 bf16 levels,
-    r = 4, flows of +-40 px."""
-    from tpuflow_torch.kernels.bandlookup import band_patch_level, band_patch_level_plain
-    from tpuflow_torch.kernels.denselookup import dense_patch_level, dense_patch_level_plain
-
-    wrapper, plain, replaces = {
-        "flat": (dense_patch_level, dense_patch_level_plain, "tpuflow/kernels/denselookup.py:156"),
-        "band": (band_patch_level, band_patch_level_plain, "tpuflow/kernels/bandlookup.py:184"),
-    }[layout]
-    name = wrapper.__name__
+    """The volume-patch kernel through K4 (layout 'flat', levels
+    [B*Nq, lh, lw]) or K6 (layout 'band', levels [B, lh, Nq, lw]), each
+    through its one-level wrapper and its all-levels wrapper (one launch): a
+    copy of volume entries, so kernel and plain version must be bitwise
+    equal.  Ragged shapes (check_volume_patch_ragged), then the tile shape:
+    6 x 135x120 queries, 4 bf16 levels, r = 4, flows of +-40 px, timed."""
+    one, one_plain, levels_fn, levels_plain, replaces = volume_patch_fns(layout)
+    name = one.__name__
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    check_volume_patch_ragged(g, dev, layout)
 
-    def draw(b, h, w, levels, dtype, r, flow_px):
-        vols = random_volumes(g, dev, b * h * w, h, w, levels, dtype)
-        if layout == "band":   # [B*Nq, lh, lw] -> [B, lh, Nq, lw]
-            vols = [v.reshape(b, h * w, *v.shape[1:]).transpose(1, 2).contiguous() for v in vols]
-        flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * flow_px
-        dims = [(v.shape[1], v.shape[-1]) for v in vols]
-        return vols, [patch_geometry(flow, lvl, lh, lw, r) for lvl, (lh, lw) in enumerate(dims)]
-
-    for b, h, w, levels, dtype, r_, px in ((2, 9, 11, 3, torch.float32, 3, 15.0),
-                                           (*TILE_QUERIES, 4, torch.bfloat16, 4, 40.0)):
-        vols, geo = draw(b, h, w, levels, dtype, r_, px)
-        for vol, (rr, cc) in zip(vols, geo):
-            got, ref = wrapper(vol, rr, cc), plain(vol, rr, cc)
-            torch.cuda.synchronize()
-            if got.dtype != vol.dtype or not torch.equal(got, ref):
-                raise AssertionError(f"{name} is not bitwise equal to its plain version at "
-                                     f"{tuple(vol.shape)} {dtype}")
-        log(f"{name} {b}x{h}x{w} L={levels} r={r_} {dtype}: bitwise equal to its plain version")
-
-    # The last draw is the tile shape.  Least bytes: each distinct entry a
-    # patch needs read once (clamped indices repeat at the border), the
-    # indices, the output.
+    (b, h, w), levels, r_ = TILE_QUERIES, 4, 4
+    vols, flow, dims, geo = volume_patch_draw(g, dev, layout, b, h, w, h, w, levels, torch.bfloat16, r_, 40.0)
+    check_patch_entries(name, one, one_plain, levels_fn, levels_plain, vols, geo, "tile shape")
     side = 2 * r_ + 2
+    wide = [(cc[..., -1] - cc[..., 0] == side - 1).float().mean().item() for _, cc in geo]
+    log(f"{name} {b}x{h}x{w} L={levels} r={r_} bf16: bitwise equal to its plain version; share of queries "
+        f"with contiguous columns per level {[round(x, 3) for x in wide]}")
+
+    # Least bytes: each distinct entry a patch needs read once (clamped
+    # indices repeat at the border), the indices, the output.
     nbytes = 0
     for vol, (rr, cc) in zip(vols, geo):
         rows = rr.max(dim=2).values - rr.min(dim=2).values + 1
@@ -683,19 +756,67 @@ def check_volume_patch(dev, layout: str) -> dict:
             return [v[bidx, ri, qidx, ci] for v, (ri, ci) in zip(vols, long_geo)]
         return [v.view(b, h * w, *v.shape[1:])[bidx, qidx, ri, ci] for v, (ri, ci) in zip(vols, long_geo)]
 
+    rrs, ccs = [rr for rr, _ in geo], [cc for _, cc in geo]
     for got, vol, (rr, cc) in zip(indexing(), vols, geo):
-        if not torch.equal(got, wrapper(vol, rr, cc)):
+        if not torch.equal(got, one(vol, rr, cc)):
             raise AssertionError(f"{name}: the indexing yardstick computes another function")
-    ms = time_ms(lambda: [wrapper(v, rr, cc) for v, (rr, cc) in zip(vols, geo)], reps=20)
-    plain_ms = time_ms(lambda: [plain(v, rr, cc) for v, (rr, cc) in zip(vols, geo)], reps=5)
+
+    def lookup():
+        return levels_fn(vols, rrs, ccs)
+
+    # Device time: the card sleeps while the host enqueues every call, so
+    # the host's launch cost does not show.  Host time: CUDA events around
+    # calls on an idle card, the launch cost included, as a caller sees it.
+    ms = time_ms(lookup, reps=20, queued=True)
+    host_ms = time_ms(lookup, reps=20)
+    per_level = [time_ms(lambda: one(v, rr, cc), reps=20, queued=True) for v, (rr, cc) in zip(vols, geo)]
+    plain_ms = time_ms(lambda: levels_plain(vols, rrs, ccs), reps=5)
     library_ms = time_ms(indexing, reps=5)
-    log(f"{name} ms {ms:.4f} per lookup ({levels} launches)  plain {plain_ms:.4f}  indexing {library_ms:.4f}  "
-        f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB)")
+    log(f"{name} ms {ms:.4f} per lookup on the device (one launch; one level at a time "
+        f"{[round(t, 4) for t in per_level]})  host-clocked {host_ms:.4f}  plain {plain_ms:.4f}  "
+        f"indexing {library_ms:.4f}  bound {bound:.4f} ({nbytes / 1e6:.1f} MB), device time / bound "
+        f"{ms / bound:.2f}")
     return {
         "name": name, "route": "cuda", "source": "tpuflow_torch/csrc/volume_patch.cu",
-        "replaces": replaces, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
+        "replaces": replaces, "max_abs_err": 0.0, "ms": ms, "host_ms": host_ms, "ms_per_level": per_level,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
     }
+
+
+def check_volume_patch_far(dev) -> dict:
+    """K4 and K6 on patches that read entries beyond element offset 2^31:
+    one bf16 buffer of 9000 x 500 x 500 entries (4.5 GB) read as a flat
+    level [9000, 500, 500] (B = 1, Nq = 9000) and as a band level
+    [1, 500, 9000, 500], beside a second level of 9000 x 100 x 100, through
+    both entries, bitwise against the plain versions.  Patch origins are
+    drawn over the whole plane and past its edges (r = 4)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    nq, side = 9000, 10
+    out = {}
+    bufs = [torch.empty(nq * lh * lw, dtype=torch.bfloat16, device=dev).normal_(generator=g)
+            for lh, lw in ((500, 500), (100, 100))]
+    for layout in ("flat", "band"):
+        one, one_plain, levels_fn, levels_plain, _ = volume_patch_fns(layout)
+        vols, geo, fars = [], [], []
+        for buf, (lh, lw) in zip(bufs, ((500, 500), (100, 100))):
+            vols.append(buf.view(nq, lh, lw) if layout == "flat" else buf.view(1, lh, nq, lw))
+            rr, cc = (torch.randint(-side, n, (1, nq, 1), generator=g, device=dev, dtype=torch.int32)
+                      + torch.arange(side, device=dev, dtype=torch.int32) for n in (lh, lw))
+            rr, cc = rr.clamp(0, lh - 1).contiguous(), cc.clamp(0, lw - 1).contiguous()
+            geo.append((rr, cc))
+            q = torch.arange(nq, device=dev)[:, None]
+            rows = q * (lh * lw) + rr[0].long() * lw if layout == "flat" else rr[0].long() * (nq * lw) + q * lw
+            fars.append(int((rows + cc[0].long()[:, -1:]).max().item()))
+        far = fars[0]                       # the 4.5 GB level
+        if far < 2**31:
+            raise AssertionError(f"{one.__name__}: the far draw reads no entry beyond 2^31 ({far})")
+        check_patch_entries(one.__name__, one, one_plain, levels_fn, levels_plain, vols, geo, "beyond 2^31")
+        log(f"{one.__name__} on a {layout} level of {bufs[0].numel()} bf16 entries: bitwise equal to its plain "
+            f"version through both entries, farthest entry read {far} (2^31 = {2**31})")
+        out[layout] = far
+    del bufs, vols
+    torch.cuda.empty_cache()
+    return out
 
 
 def synthetic_clip(n: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -739,16 +860,15 @@ def stage_times(engine, frames: np.ndarray):
     return out, enc
 
 
-def profile_refine(model, enc) -> dict:
-    """Device time of one refinement by kernel name (torch.profiler), the
-    share of the refinement's wall time the device was busy, and the device
-    time and launches of the correlation-patch kernels (K3/K5)."""
+def device_profile(fn):
+    """(host wall ms, [(device ms, launches, kernel name)] largest first) of
+    one synchronized call of fn under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.refine(enc)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -759,6 +879,14 @@ def profile_refine(model, enc) -> dict:
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
+    return wall_ms, rows
+
+
+def profile_refine(model, enc) -> dict:
+    """Device time of one refinement by kernel name (torch.profiler), the
+    share of the refinement's wall time the device was busy, and the device
+    time and launches of the correlation-patch kernels (K3/K5)."""
+    wall_ms, rows = device_profile(lambda: model.refine(enc))
     busy = sum(r[0] for r in rows)
     log(f"profile of one refinement ({model.decoder_depth} iterations): wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy:.1f} ms = {100 * busy / wall_ms:.1f} %")
@@ -985,6 +1113,57 @@ def phase_strided(engine, kernels) -> dict:
     return out
 
 
+def profile_patch_lookup(what: str, whole, corr, flow, radius: int) -> dict:
+    """One patch lookup of a 'patch' (DenseCorrPyramid, K4) or 'band'
+    (BandCorrPyramid, K6) object at `flow` (`whole()`), timed on the device
+    (queued) and on the host clock, and its device time by part as
+    core/corr.py:_patch_lookup runs it: the geometry of every level
+    (_radius_patch_indices) and the epilogue of every level
+    (_patch_to_features), each profiled alone after a warm pass, and the
+    patch kernel and the concat, read by name from a profile of the whole
+    lookup."""
+    from tpuflow_torch.core.corr import BandCorrPyramid, _base_coords, _patch_to_features, _radius_patch_indices
+    from tpuflow_torch.kernels.bandlookup import band_patch_levels
+    from tpuflow_torch.kernels.denselookup import dense_patch_levels
+
+    levels = corr.pyramid
+    band = isinstance(corr, BandCorrPyramid)
+    dims = [(v.shape[1], v.shape[3] if band else v.shape[2]) for v in levels]
+    b, h, w, _ = flow.shape
+    st = {}
+
+    def geometry():
+        bx, by = _base_coords(flow)
+        st["idx"] = [_radius_patch_indices(bx, by, lvl, lh, lw, radius) for lvl, (lh, lw) in enumerate(dims)]
+
+    def epilogue():
+        st["feats"] = [_patch_to_features(p, i, lh, lw, (b, h, w, radius))
+                       for p, i, (lh, lw) in zip(st["patches"], st["idx"], dims)]
+
+    with torch.inference_mode():
+        geometry()
+        fn = band_patch_levels if band else dense_patch_levels
+        st["patches"] = fn(levels, [i.rr for i in st["idx"]], [i.cc for i in st["idx"]])
+        epilogue()
+        if not torch.equal(torch.cat(st["feats"], dim=-1), whole()):
+            raise AssertionError(f"{what}: the lookup split into parts computes another function")
+        ms = time_ms(whole, reps=10, queued=True)
+        host_ms = time_ms(whole, reps=10)
+    res = {"device_ms": ms, "host_ms": host_ms}
+    for key, part in (("geometry", geometry), ("epilogue", epilogue), ("whole", whole)):
+        wall_ms, rows = device_profile(part)
+        res[key] = {"device_ms": sum(r[0] for r in rows), "launches": sum(r[1] for r in rows),
+                    "kernels": [[round(t, 4), n, k[:80]] for t, n, k in rows[:4]]}
+        if key == "whole":
+            for name, pattern in (("kernel", "volume_patch"), ("cat", "CatArrayBatched")):
+                hit = [(t, n) for t, n, k in rows if pattern in k]
+                res[name] = {"device_ms": sum(t for t, _ in hit), "launches": sum(n for _, n in hit)}
+    log(f"  {what} lookup: {ms:.4f} ms on the device, {host_ms:.4f} ms host-clocked; device time by part under "
+        f"the profiler: " + ", ".join(f"{k} {res[k]['device_ms']:.4f} ms ({res[k]['launches']} kernels)"
+                                      for k in ("geometry", "kernel", "epilogue", "cat", "whole")))
+    return res
+
+
 def phase_formulations(engine, kernels) -> dict:
     """corr_impl 'flash', 'band' and dense_lookup='patch' through MOFNet at
     the tile shape (two 960x1080 tiles of a 5-frame window: 6 batch rows of
@@ -1000,8 +1179,8 @@ def phase_formulations(engine, kernels) -> dict:
     expected = {
         "dense": {"dense_lookup": lookups},
         "flash": {"flash_patch_level": lookups, "dense_lookup": lookups},   # level 0 + sidecar
-        "band": {"band_patch_level": lookups * cfg.corr_levels},
-        "patch": {"dense_patch_level": lookups * cfg.corr_levels},
+        "band": {"band_patch_level": lookups},          # one launch per lookup, all levels
+        "patch": {"dense_patch_level": lookups},
     }
     out, flows, probes = {}, {}, {}
     probe = probe_flow(engine.device, *TILE_QUERIES, SEED + 9)
@@ -1014,29 +1193,41 @@ def phase_formulations(engine, kernels) -> dict:
             for name in ("dense", "flash", "band", "patch"):
                 model.corr_impl = "dense" if name == "patch" else name
                 model.dense_lookup = "patch" if name == "patch" else "auto"
+
+                def run():
+                    return model.refine(model.encode_from_features(feats, ctxs))
+
+                run()                                   # warm-up: allocator, cuDNN, kernels
                 reset_launches(kernels)
-                (up_fwd, _), wall = timed_call(
-                    lambda: model.refine(model.encode_from_features(feats, ctxs)))
+                (up_fwd, _), wall = timed_call(run)
                 launches = read_launches(kernels)
                 want = dict.fromkeys(kernels, 0)
                 want["flash_attention_fwd"] = FORMULATION_DEPTH
                 want.update(expected[name])
                 if launches != want:
                     raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
+                walls = [wall] + [timed_call(run)[1] for _ in range(2)]
                 flows[name] = up_fwd.float()
                 if not torch.isfinite(flows[name]).all():
                     raise AssertionError(f"{name}: non-finite flows")
-                out[name] = {"wall_ms": wall * 1e3, "launches": {k: v for k, v in launches.items() if v}}
+                out[name] = {"wall_ms": float(np.median(walls)) * 1e3, "wall_ms_runs": [t * 1e3 for t in walls],
+                             "launches": {k: v for k, v in launches.items() if v}}
                 # After the counters were read: one lookup at the probe flows.
-                probes[name] = model._lookup(model.encode_from_features(feats, ctxs).corr_fwd, probe)
+                enc = model.encode_from_features(feats, ctxs)
+                probes[name] = model._lookup(enc.corr_fwd, probe)
+                if name in ("patch", "band"):
+                    out[name]["lookup"] = profile_patch_lookup(
+                        name, lambda: model._lookup(enc.corr_fwd, probe), enc.corr_fwd, probe, model.corr_radius)
+                del enc
                 torch.cuda.empty_cache()
     finally:
         model.decoder_depth = cfg.decoder_depth
         model.corr_impl = cfg.corr_impl
         model.dense_lookup = "auto"
     for name in ("flash", "band", "patch"):
-        log(f"formulation {name!r} at [6,135,120], {FORMULATION_DEPTH} iterations: {out[name]['wall_ms']:.1f} ms "
-            f"(dense {out['dense']['wall_ms']:.1f} ms), launches {out[name]['launches']}")
+        log(f"formulation {name!r} at [6,135,120], {FORMULATION_DEPTH} iterations: {out[name]['wall_ms']:.1f} ms, "
+            f"median of {[round(t, 1) for t in out[name]['wall_ms_runs']]} (dense {out['dense']['wall_ms']:.1f} ms), "
+            f"launches {out[name]['launches']}")
         # bf16 throughout; see phase_untiled.
         out[name].update(check_flows_agree(f"formulation {name!r} vs 'dense'", flows[name].cpu().numpy(),
                                            flows["dense"].cpu().numpy()))
@@ -1110,6 +1301,10 @@ def main() -> int:
                          also=(TILE_QUERIES, 1)),
         check_volume_patch(dev, "band"),
     ]
+    far = check_volume_patch_far(dev)
+    for row in rows:
+        if row["name"] in ("dense_patch_level", "band_patch_level"):
+            row["farthest_entry_checked"] = far["flat" if row["name"] == "dense_patch_level" else "band"]
     torch.cuda.empty_cache()
 
     engine = FlowEngine(ModelConfig(), seed=SEED)          # device defaults to the card

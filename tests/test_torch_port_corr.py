@@ -35,6 +35,8 @@ from tpuflow_torch.core.mofnet import MOFNet
 from tpuflow_torch.kernels.bandlookup import band_patch_level
 from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
 from tpuflow_torch.kernels.flashcorr import flash_patch_level
+from tpuflow_torch.kernels import bandlookup as tband
+from tpuflow_torch.kernels import denselookup as tdense
 from tpuflow_torch.kernels import flashcorr2 as tflashcorr2
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level, flash2_patch_level_plain
 
@@ -469,3 +471,112 @@ def test_takes_tiles(dtype, c, want):
     """bf16 with whole 16-channel steps up to 256 channels runs tiles; f32
     and other widths take the per-query path."""
     assert tflashcorr2.takes_tiles(dtype, c) is want
+
+
+# ---- K4/K6's all-levels entries -----------------------------------------
+
+LAYOUTS = {"flat": (tdense.dense_patch_levels, tdense.dense_patch_level_plain),
+           "band": (tband.band_patch_levels, tband.band_patch_level_plain)}
+
+
+def ragged_levels(layout: str, dt: str, radius: int, seed: int = 5):
+    """Volumes of 3 levels (planes 13x17, 6x8, 3x4 up to radius 4) for 3 x 7x11 = 231
+    queries and each level's clamped rr, cc from flows of up to 1.5x the
+    plane, numpy-drawn; asserts that patches straddle every edge of level 0
+    and that some queries' columns are clamped and some not."""
+    rng = np.random.default_rng(seed + radius)
+    b, h, w = 3, 7, 11
+    side = 2 * radius + 2
+    # Level 0 is 13x17, or wider than a patch; targets uniform over it and
+    # a patch beyond it.
+    lh0, lw0 = max(13, side + 9), max(17, side + 11)
+    ys, xs = np.mgrid[0:h, 0:w]
+    tx = rng.uniform(-side - 1.0, lw0 + 1.0, (b, h, w))
+    ty = rng.uniform(-side - 1.0, lh0 + 1.0, (b, h, w))
+    flow = torch.from_numpy(np.stack([tx - xs, ty - ys], -1).astype(np.float32))
+    bx, by = tcorr._base_coords(flow)
+    vols, rrs, ccs = [], [], []
+    for lvl in range(3):
+        lh, lw = tcorr.pyramid_level_dims(lh0, lw0, lvl)
+        v = torch.from_numpy(rng.standard_normal((b * h * w, lh, lw)).astype(np.float32)).to(TDT[dt])
+        if layout == "band":
+            v = v.reshape(b, h * w, lh, lw).transpose(1, 2).contiguous()
+        idx = tcorr._radius_patch_indices(bx, by, lvl, lh, lw, radius)
+        vols.append(v)
+        rrs.append(idx.rr)
+        ccs.append(idx.cc)
+        if lvl == 0:
+            for raw, n in ((idx.xraw, lw), (idx.yraw, lh)):
+                lo = raw[..., 0]
+                assert ((lo < 0) & (lo + side > 0)).any() and ((lo < n) & (lo + side > n)).any()
+            contiguous = idx.cc[..., -1] - idx.cc[..., 0] == side - 1
+            assert contiguous.any() and not contiguous.all()
+    return vols, rrs, ccs
+
+
+@pytest.mark.parametrize("radius", [0, 1, 4, 14])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_patch_levels_match_plain_per_level(layout, dt, radius):
+    """The all-levels entry gives each level's plain patch, bit for bit, on
+    ragged shapes with patches across every plane edge; the one-level
+    wrapper gives the same."""
+    levels_fn, plain = LAYOUTS[layout]
+    one = tdense.dense_patch_level if layout == "flat" else tband.band_patch_level
+    vols, rrs, ccs = ragged_levels(layout, dt, radius)
+    got = levels_fn(vols, rrs, ccs)
+    assert len(got) == len(vols)
+    for g, v, rr, cc in zip(got, vols, rrs, ccs):
+        ref = plain(v, rr, cc)
+        assert g.dtype == TDT[dt] and tuple(g.shape) == (3, 77, 2 * radius + 2, 2 * radius + 2)
+        assert torch.equal(g, ref) and torch.equal(one(v, rr, cc), ref)
+
+
+def _bad_level_lists(layout: str):
+    """(what, volumes, rrs, ccs) that the all-levels wrappers refuse."""
+    vols, rrs, ccs = ragged_levels(layout, "f32", 1)
+    meta = vols[1].to("meta")
+    return {
+        "no_levels": ([], [], []),
+        "nine_levels": (vols * 3, rrs * 3, ccs * 3),
+        "fewer_rr": (vols, rrs[:2], ccs),
+        "fewer_cc": (vols, rrs, ccs[:1]),
+        "mixed_dtype": ([vols[0], vols[1].to(torch.bfloat16), vols[2]], rrs, ccs),
+        "mixed_device": ([vols[0], meta, vols[2]], rrs, ccs),
+        "float16": ([v.to(torch.float16) for v in vols], rrs, ccs),
+        "rr_shapes_differ": (vols, [rrs[0], rrs[1][:, :-1].contiguous(), rrs[2]], [ccs[0], ccs[1][:, :-1].contiguous(), ccs[2]]),
+        "odd_side": (vols, [r[..., :3].contiguous() for r in rrs], [c[..., :3].contiguous() for c in ccs]),
+        "side_above_30": (vols, [r.repeat(1, 1, 8) for r in rrs], [c.repeat(1, 1, 8) for c in ccs]),
+        "other_layout": ([v.reshape(3, -1, *v.shape[2:]) if layout == "flat" else v.reshape(-1, *v.shape[3:]).contiguous()
+                          for v in vols], rrs, ccs),
+    }
+
+
+@pytest.mark.parametrize("what", list(_bad_level_lists("flat")))
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_patch_levels_reject_bad_level_lists(layout, what):
+    vols, rrs, ccs = _bad_level_lists(layout)[what]
+    with pytest.raises(ValueError):
+        LAYOUTS[layout][0](vols, rrs, ccs)
+
+
+@pytest.mark.parametrize("name,attr", [("dense_patch", "dense_patch_levels"), ("band", "band_patch_levels")])
+def test_patch_lookup_makes_one_call_for_all_levels(monkeypatch, name, attr):
+    """A 'patch' or 'band' lookup hands every level to one call of the
+    all-levels entry (one launch on the card), and stays the JAX class's
+    lookup."""
+    seen = []
+    fn = getattr(tcorr, attr)
+
+    def spy(vols, rrs, ccs):
+        seen.append((len(vols), len(rrs), len(ccs)))
+        return fn(vols, rrs, ccs)
+
+    monkeypatch.setattr(tcorr, attr, spy)
+    flow = flows(30.0)
+    f1, f2 = (to_torch(x, "bf16") for x in features("bf16"))
+    kw = {"impl": "patch"} if name == "dense_patch" else {}
+    got = CLASSES[name][1](f1, f2).lookup(torch.from_numpy(flow), 4, **kw).numpy()
+    assert seen == [(LEVELS, LEVELS, LEVELS)]
+    ref = np.asarray(jax_lookup(name, "bf16", 4)(jnp.asarray(flow)))
+    assert np.abs(got - ref).max() <= BF16_TOL * max(1.0, float(np.abs(ref).max()))

@@ -33,8 +33,8 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..kernels.bandlookup import band_patch_level
-from ..kernels.denselookup import dense_lookup, dense_patch_level
+from ..kernels.bandlookup import band_patch_levels
+from ..kernels.denselookup import dense_lookup, dense_patch_levels
 from ..kernels.flashcorr import flash_patch_level
 from ..kernels.flashcorr2 import flash2_patch_level
 
@@ -168,18 +168,18 @@ def _patch_to_features(patch: torch.Tensor, idx: _PatchIdx, lh: int, lw: int, sh
     return sampled.reshape(b, h, w, (2 * r + 1) ** 2).float()
 
 
-def _patch_lookup(patch_fn, levels, dims, flow, radius: int, level_offset: int = 0) -> torch.Tensor:
-    """Lookup through a patch kernel: for each stored level (plane dims
-    `dims[i]`, sampled at scale 2^(i + level_offset)) the geometry,
-    `patch_fn(level, rr, cc)`'s (2r+2)^2 patch, and the shared epilogue."""
+def _patch_lookup(patches_fn, levels, dims, flow, radius: int, level_offset: int = 0) -> torch.Tensor:
+    """Lookup through a patch kernel: the geometry of every stored level
+    (plane dims `dims[i]`, sampled at scale 2^(i + level_offset)), then
+    `patches_fn(levels, rrs, ccs)`'s (2r+2)^2 patch per level (one call for
+    all levels), then the shared epilogue per level."""
     b, h, w, _ = flow.shape
     base_x, base_y = _base_coords(flow)
-    out = []
-    for lvl0, (level, (lh, lw)) in enumerate(zip(levels, dims)):
-        idx = _radius_patch_indices(base_x, base_y, lvl0 + level_offset, lh, lw, radius)
-        patch = patch_fn(level, idx.rr, idx.cc)
-        out.append(_patch_to_features(patch, idx, lh, lw, (b, h, w, radius)))
-    return torch.cat(out, dim=-1)
+    idxs = [_radius_patch_indices(base_x, base_y, lvl0 + level_offset, lh, lw, radius)
+            for lvl0, (lh, lw) in enumerate(dims)]
+    patches = patches_fn(levels, [idx.rr for idx in idxs], [idx.cc for idx in idxs])
+    return torch.cat([_patch_to_features(patch, idx, lh, lw, (b, h, w, radius))
+                      for patch, idx, (lh, lw) in zip(patches, idxs, dims)], dim=-1)
 
 
 class CorrPyramid:
@@ -282,7 +282,7 @@ class DenseCorrPyramid:
         if mode == "auto":
             return dense_lookup(self.pyramid, flow, radius, self.level_offset)
         dims = [(v.shape[1], v.shape[2]) for v in self.pyramid]
-        return _patch_lookup(dense_patch_level, self.pyramid, dims, flow, radius, self.level_offset)
+        return _patch_lookup(dense_patch_levels, self.pyramid, dims, flow, radius, self.level_offset)
 
 
 class OnTheFlyCorr:
@@ -356,7 +356,11 @@ def _recomputed_lookup(kernel, fmap1, pooled, flow, radius: int) -> torch.Tensor
     b, h, w, c = fmap1.shape
     f1 = fmap1.reshape(b, h * w, c)
     dims = [(p.shape[1], p.shape[2]) for p in pooled]
-    return _patch_lookup(lambda f2l, rr, cc: kernel(f1, f2l, rr, cc, grid_w=w), pooled, dims, flow, radius)
+
+    def patches(levels, rrs, ccs):
+        return [kernel(f1, f2l, rr, cc, grid_w=w) for f2l, rr, cc in zip(levels, rrs, ccs)]
+
+    return _patch_lookup(patches, pooled, dims, flow, radius)
 
 
 class FlashCorr:
@@ -454,7 +458,7 @@ class BandCorrPyramid:
 
     def lookup(self, flow: torch.Tensor, radius: int = 4) -> torch.Tensor:
         dims = [(v.shape[1], v.shape[3]) for v in self.pyramid]
-        return _patch_lookup(band_patch_level, self.pyramid, dims, flow, radius)
+        return _patch_lookup(band_patch_levels, self.pyramid, dims, flow, radius)
 
 
 def make_corr(

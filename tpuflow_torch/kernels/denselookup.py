@@ -16,17 +16,18 @@ The kernel stages each query's patches in shared memory, one patch row per
 warp pass, so both versions take radii 0..MAX_RADIUS only.
 
 K4, the exact-value patch (port of `dense_patch_level`,
-tpuflow/kernels/denselookup.py:156): for one flat level [B*Nq, lh, lw] and
+tpuflow/kernels/denselookup.py:156): for a flat level [B*Nq, lh, lw] and
 clamped indices rr, cc [B, Nq, side], patch[b,q,i,j] = vol[b*Nq+q, rr[b,q,i],
-cc[b,q,j]] in the volume's dtype.  `dense_patch_level` launches
-csrc/volume_patch.cu for CUDA tensors and runs `dense_patch_level_plain`
-for CPU tensors; the two agree bit for bit.
+cc[b,q,j]] in the volume's dtype.  `dense_patch_levels` takes every level
+of a lookup and launches csrc/volume_patch.cu once for CUDA tensors, or
+runs `dense_patch_levels_plain` for CPU tensors; `dense_patch_level` is its
+one-level form.  Kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -34,6 +35,7 @@ from ._build import check_launch, library
 
 MAX_LEVELS = 8
 MAX_RADIUS = 14
+MAX_PATCH_SIDE = 2 * MAX_RADIUS + 2   # K4/K6's widest patch
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -165,32 +167,83 @@ def _volume_patch_lib():
     fn = library("volume_patch").tf_volume_patch
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch_volume_patch(
-    vol: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor, lh: int, lw: int, strides, kernel: str
-) -> torch.Tensor:
-    """csrc/volume_patch.cu on a contiguous CUDA volume whose entry (b, q,
-    row, col) lies at b*sb + q*sq + row*sr + col*sc, `strides` = (sb, sq, sr,
-    sc) in elements -> [B, Nq, side, side] in the volume's dtype."""
-    b, nq, side = rr.shape
-    out = torch.empty((b, nq, side, side), dtype=vol.dtype, device=vol.device)
+def check_volume_levels(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
+                        ccs: Sequence[torch.Tensor], layout: str) -> None:
+    """The levels of one patch lookup (shared by K4 and K6): 1..MAX_LEVELS
+    contiguous volumes of one dtype (bf16 or f32) on one device, flat
+    [B*Nq, lh, lw] (layout 'flat') or [B, lh, Nq, lw] ('band'), and per
+    level clamped rr, cc [B, Nq, side] int32 of one shape, side even and at
+    most MAX_PATCH_SIDE."""
+    if not 1 <= len(volumes) <= MAX_LEVELS or len(rrs) != len(volumes) or len(ccs) != len(volumes):
+        raise ValueError(f"1..{MAX_LEVELS} levels with one rr and one cc each, got "
+                         f"{len(volumes)}, {len(rrs)}, {len(ccs)}")
+    dev, dt = volumes[0].device, volumes[0].dtype
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"volumes must be bfloat16 or float32, got {dt}")
+    shape = tuple(rrs[0].shape)
+    for vol, rr, cc in zip(volumes, rrs, ccs):
+        check_patch_indices(rr, cc, dev)
+        if tuple(rr.shape) != shape:
+            raise ValueError(f"every level's rr, cc must share one shape: {tuple(rr.shape)} and {shape}")
+        if vol.device != dev or vol.dtype != dt or not vol.is_contiguous():
+            raise ValueError(f"volumes must be contiguous, of one dtype on one device: {vol.dtype} on "
+                             f"{vol.device} beside {dt} on {dev}")
+        b, nq, side = shape
+        if layout == "flat" and (vol.dim() != 3 or vol.shape[0] != b * nq):
+            raise ValueError(f"volume {tuple(vol.shape)}: expected [{b * nq}, lh, lw]")
+        if layout == "band" and (vol.dim() != 4 or (vol.shape[0], vol.shape[2]) != (b, nq)):
+            raise ValueError(f"vol {tuple(vol.shape)}: expected [{b}, lh, {nq}, lw]")
+    if side % 2 or not 2 <= side <= MAX_PATCH_SIDE:
+        raise ValueError(f"patch side {side}: expected an even side of 2..{MAX_PATCH_SIDE}")
+
+
+def launch_volume_patch(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
+                        ccs: Sequence[torch.Tensor], layout: str, kernel: str) -> List[torch.Tensor]:
+    """csrc/volume_patch.cu, one launch for every level of checked CUDA
+    levels (check_volume_levels) -> per level [B, Nq, side, side] in the
+    volumes' dtype.  The outputs share one buffer, each level starting at a
+    multiple of 16 bytes, as the kernel's 16-byte stores need."""
+    b, nq, side = rrs[0].shape
+    if layout == "flat":
+        dims = [(v.shape[1], v.shape[2]) for v in volumes]
+        strides = [(nq * lh * lw, lh * lw, lw) for lh, lw in dims]
+    else:
+        dims = [(v.shape[1], v.shape[3]) for v in volumes]
+        strides = [(lh * nq * lw, lw, nq * lw) for lh, lw in dims]
+    if b * nq * side >= 2**31 or max(max(sq, sr) for _, sq, sr in strides) >= 2**31:
+        raise ValueError(f"{kernel}: indices or strides beyond 2^31 (B*Nq*side = {b * nq * side})")
+    nl = len(volumes)
+    n = b * nq * side * side
+    step = -(-n // (16 // volumes[0].element_size())) * (16 // volumes[0].element_size())
+    buf = torch.empty(nl * step, dtype=volumes[0].dtype, device=volumes[0].device)
+    outs = [buf[l * step: l * step + n].view(b, nq, side, side) for l in range(nl)]
+
+    def arr(ctype, values):
+        return (ctype * nl)(*values)
+
     fn = _volume_patch_lib()
-    with torch.cuda.device(vol.device):
+    with torch.cuda.device(volumes[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            vol.element_size(), vol.data_ptr(), rr.data_ptr(), cc.data_ptr(), out.data_ptr(),
-            b * nq, nq, side, lh, lw, *strides, stream,
+            volumes[0].element_size(), nl,
+            arr(ctypes.c_void_p, [v.data_ptr() for v in volumes]),
+            arr(ctypes.c_void_p, [r.data_ptr() for r in rrs]),
+            arr(ctypes.c_void_p, [c.data_ptr() for c in ccs]),
+            arr(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+            arr(ctypes.c_int, [lh for lh, _ in dims]), arr(ctypes.c_int, [lw for _, lw in dims]),
+            *(arr(ctypes.c_longlong, [st[k] for st in strides]) for k in range(3)),
+            b * nq, nq, side, stream,
         )
     check_launch(rc, kernel)
-    return out
+    return outs
 
 
 def dense_patch_level_plain(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
@@ -202,28 +255,35 @@ def dense_patch_level_plain(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Te
     return patch.reshape(b, nq, side, side)
 
 
-def dense_patch_level(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
-    """volume [B*Nq, lh, lw] (bf16 or f32) + clamped rr, cc [B, Nq, side]
-    int32 -> patch [B, Nq, side, side] of exact volume entries.  CPU tensors:
-    the plain version; CUDA tensors: the kernel."""
-    check_patch_indices(rr, cc, volume.device)
-    if volume.dim() != 3 or volume.shape[0] != rr.shape[0] * rr.shape[1]:
-        raise ValueError(
-            f"volume {tuple(volume.shape)}: expected [{rr.shape[0] * rr.shape[1]}, lh, lw]"
-        )
-    if volume.dtype not in _DTYPE_CODES or not volume.is_contiguous():
-        raise ValueError(f"volume must be contiguous bfloat16 or float32, got {volume.dtype}")
-    if volume.device.type == "cpu":
-        return dense_patch_level_plain(volume, rr, cc)
-    if volume.device.type != "cuda":
-        raise ValueError(f"dense_patch_level runs on cpu or cuda, not {volume.device}")
-    _, lh, lw = volume.shape
-    nq = rr.shape[1]
-    out = launch_volume_patch(
-        volume, rr, cc, lh, lw, (nq * lh * lw, lh * lw, lw, 1), "dense_patch_level"
-    )
+def dense_patch_levels_plain(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
+                             ccs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Plain PyTorch version of dense_patch_levels: level by level."""
+    return [dense_patch_level_plain(v, rr, cc) for v, rr, cc in zip(volumes, rrs, ccs)]
+
+
+def dense_patch_levels(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
+                       ccs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every level of one lookup: volumes [B*Nq, lh, lw] (bf16 or f32) +
+    per level clamped rr, cc [B, Nq, side] int32 -> per level a patch
+    [B, Nq, side, side] of exact volume entries.  CPU tensors: the plain
+    version; CUDA tensors: the kernel, one launch for all levels (counted in
+    dense_patch_level.launches)."""
+    check_volume_levels(volumes, rrs, ccs, "flat")
+    dev = volumes[0].device
+    if dev.type == "cpu":
+        return dense_patch_levels_plain(volumes, rrs, ccs)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_patch_level runs on cpu or cuda, not {dev}")
+    outs = launch_volume_patch(volumes, rrs, ccs, "flat", "dense_patch_level")
     dense_patch_level.launches += 1
-    return out
+    return outs
+
+
+def dense_patch_level(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """One level: volume [B*Nq, lh, lw] (bf16 or f32) + clamped rr, cc
+    [B, Nq, side] int32 -> patch [B, Nq, side, side] of exact volume
+    entries, through dense_patch_levels."""
+    return dense_patch_levels([volume], [rr], [cc])[0]
 
 
 dense_patch_level.launches = 0
