@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero and
-prints no result lines):
+prints no result lines); the MOF/Twins phases 4-10 share one engine:
 
 1. environment: a CUDA device is required; prints nvidia-smi's name and
    power limit.
@@ -43,9 +43,27 @@ prints no result lines):
    launch counters, timed as the median of 3 calls after a warm-up; one
    'patch' and one 'band' lookup profiled by part (geometry, kernel,
    epilogue, concat).
-8. parity: one small clip through the same engine weights in f32 with TF32
+8. window batching: compute_flows_tiled_stride1 on four 1920x1080 frames
+   with window_batch 1, 2 and 8 (clamped to what the card's free memory
+   holds), the flows held to each other; then the pair-cached loop
+   (TPUFLOW_STRIDE1=pairs) on the same clip against the trio loop.
+9. 4K: one 3840x2160 frame through compute_flow_tiled with tile_batch 4 (six
+   1080x1280 tiles in chunks of 4 and 2) and 6, held to each other.
+10. single tile: a 640x480 clip through compute_flow_tiled and
+   compute_flows_tiled_stride1 equals compute_flow bit for bit.
+11. BOF (architecture 'bof', T=3): tiled stride-1 on six 1920x1080 frames and
+   one untiled window (K3), then every entry point on a small clip; the cnn
+   encoder (encoder 'cnn'): tiled stride-1 on four 1920x1080 frames, its
+   encoders' time per frame against Twins's and their profile, then every
+   entry point on a small clip.
+12. parity: one small clip through the same engine weights in f32 with TF32
    off, on the CPU (plain versions) and on the card (kernels): tiled, and
    one untiled window above the materialization threshold (FlashCorr2).
+13. checked build, in a child process started before phase 2 (this script
+   with --checked-build, run only by the script itself): every kernel built
+   with its bounds guards (kernels/_build.py, checked=True), each of the six
+   wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
+   poisons the child's CUDA context and its non-zero exit fails the run.
 
 Output: progress lines, then one JSON line with every kernel's numbers, the
 card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -207,17 +225,13 @@ def window_edges(flow, r: int, dims, offset: int) -> list:
     return out
 
 
-def check_dense_lookup(dev) -> dict:
-    """K1 on ragged shapes, then at the main path: 4 levels of bf16 volumes
-    for 6 x 135 x 120 queries, radius 4, flows of +-40 px.
-
-    Ragged: radius 0 to 4, 1 to 6 levels, with and without level_offset,
-    odd plane widths, 198 queries (no power-of-two block divides them) or
-    10 050; flows of up to 1.5x the grid put patches across each edge of
-    each level's plane (asserted) and wholly off it."""
+def check_dense_lookup_ragged(g, dev) -> None:
+    """K1 on ragged shapes: radius 0 to 4, 1 to 6 levels, with and without
+    level_offset, odd plane widths, 198 queries (no power-of-two block
+    divides them) or 10 050; flows of up to 1.5x the grid put patches across
+    each edge of each level's plane (asserted) and wholly off it."""
     from tpuflow_torch.kernels.denselookup import dense_lookup, dense_lookup_plain
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
     for (b, h, w), levels, r, dtype, off in (((2, 9, 11), 4, 0, torch.float32, 0),
                                              ((2, 9, 11), 3, 1, torch.bfloat16, 1),
                                              ((2, 9, 11), 3, 2, torch.float32, 0),
@@ -236,6 +250,16 @@ def check_dense_lookup(dev) -> dict:
             f"{[tuple(v.shape[1:]) for v in vols]}: max |kernel - plain| = {err:.3e}")
         if not err <= 1e-5:
             raise AssertionError(f"K1 disagrees with its plain version on a ragged shape: {err}")
+
+
+def check_dense_lookup(dev) -> dict:
+    """K1 on ragged shapes (check_dense_lookup_ragged), then at the main path:
+    4 levels of bf16 volumes for 6 x 135 x 120 queries, radius 4, flows of
+    +-40 px."""
+    from tpuflow_torch.kernels.denselookup import dense_lookup, dense_lookup_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    check_dense_lookup_ragged(g, dev)
 
     (b, h, w), levels, r = TILE_QUERIES, 4, 4
     vols = random_volumes(g, dev, b * h * w, h, w, levels, torch.bfloat16)
@@ -327,29 +351,8 @@ def check_flash_attention(dev) -> dict:
     window's [6, 16200, 128] (127 query tiles and 127 key tiles of 128, the
     last of 72 rows) and the untiled window's [3, 32400, 128] (254 of each,
     the last of 16)."""
-    from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
-
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-
-    def qkv(b, s, dtype):
-        d = 128
-        q = (torch.randn((b, s, d), generator=g, device=dev) * d**-0.5).to(dtype)
-        return q, *(torch.randn((b, s, d), generator=g, device=dev).to(dtype) for _ in range(2))
-
-    # The f32 FMA kernel on ragged key counts, within 1e-4 + 1e-4|ref|
-    # (exact exponentials, f32 sums in another order).
-    for b, s in ((1, 130), (3, 37)):
-        q, k, v = qkv(b, s, torch.float32)
-        got, ref = flash_attention_fwd(q, k, v), flash_attention_plain(q, k, v)
-        excess = ((got - ref).abs() - 1e-4 * (1 + ref.abs())).max().item()
-        log(f"K2 ragged [{b},{s},128] f32: max |kernel - plain| = {(got - ref).abs().max().item():.3e}")
-        if not excess <= 0:
-            raise AssertionError(f"K2 (f32) disagrees with its plain version at S={s}")
-    # The bf16 kernel at B = 3 on partial query and key tiles of its 128-row
-    # CTA, S below one tile and tiles that end at a batch row's edge (the
-    # 3-D tensor map zero-fills past S instead of reading the next row).
-    for s in K2_RAGGED_S:
-        flash_attention_draws(qkv, 3, s)
+    qkv = qkv_draws(dev)
+    check_flash_attention_ragged(qkv)
 
     tiled = flash_attention_at(qkv, TILE_QUERIES[0], TILE_QUERIES[1] * TILE_QUERIES[2])
     untiled = flash_attention_at(qkv, UNTILED_QUERIES[0], UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
@@ -359,6 +362,37 @@ def check_flash_attention(dev) -> dict:
         "replaces": "tpuflow/core/gma.py:35",
         **tiled, "at_untiled_window": untiled,
     }
+
+
+def qkv_draws(dev):
+    """qkv(b, s, dtype): seeded q, k, v [b, s, 128], q pre-scaled by 128^-0.5."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def qkv(b, s, dtype):
+        d = 128
+        q = (torch.randn((b, s, d), generator=g, device=dev) * d**-0.5).to(dtype)
+        return q, *(torch.randn((b, s, d), generator=g, device=dev).to(dtype) for _ in range(2))
+
+    return qkv
+
+
+def check_flash_attention_ragged(qkv) -> None:
+    """K2 on ragged shapes: the f32 FMA kernel on ragged key counts, within
+    1e-4 + 1e-4|ref| (exact exponentials, f32 sums in another order); the
+    bf16 kernel at B = 3 on partial query and key tiles of its 128-row CTA, S
+    below one tile and tiles that end at a batch row's edge (the 3-D tensor
+    map zero-fills past S instead of reading the next row)."""
+    from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
+
+    for b, s in ((1, 130), (3, 37)):
+        q, k, v = qkv(b, s, torch.float32)
+        got, ref = flash_attention_fwd(q, k, v), flash_attention_plain(q, k, v)
+        excess = ((got - ref).abs() - 1e-4 * (1 + ref.abs())).max().item()
+        log(f"K2 ragged [{b},{s},128] f32: max |kernel - plain| = {(got - ref).abs().max().item():.3e}")
+        if not excess <= 0:
+            raise AssertionError(f"K2 (f32) disagrees with its plain version at S={s}")
+    for s in K2_RAGGED_S:
+        flash_attention_draws(qkv, 3, s)
 
 
 def flash_attention_draws(qkv, b: int, s: int):
@@ -479,10 +513,78 @@ def tensor_shares(geo, pooled, grid_w: int) -> list:
             for (rr, cc), f2l in zip(geo, pooled)]
 
 
+def corr_patch_draw(g, dev, b, h, w, c, levels, dtype, kind, amp=40.0):
+    """f1 [b, h*w, c], `levels` pooled target levels and flows of one field
+    (flow_field)."""
+    from tpuflow_torch.core.corr import _pooled_features
+
+    f1 = torch.randn((b, h * w, c), generator=g, device=dev).to(dtype)
+    pooled = [p.contiguous() for p in _pooled_features(
+        torch.randn((b, h, w, c), generator=g, device=dev).to(dtype), levels)]
+    return f1, pooled, flow_field(g, dev, b, h, w, kind, amp)
+
+
+def corr_patch_compare(wrapper, plain, f1, pooled, flow, r):
+    """(max |kernel - plain|, worst kernel-vs-plain, worst kernel-vs-f32,
+    per-level tensor-path shares), the middle two in units of the entry's
+    scale (see check_corr_patch)."""
+    from tpuflow_torch.kernels.flashcorr2 import takes_tiles
+
+    grid_w = flow.shape[2]
+    err = vs_plain = vs_exact = 0.0
+    geo = []
+    for lvl, f2l in enumerate(pooled):
+        rr, cc = patch_geometry(flow, lvl, f2l.shape[1], f2l.shape[2], r)
+        geo.append((rr, cc))
+        got = wrapper(f1, f2l, rr, cc, grid_w=grid_w).float()
+        ref = plain(f1, f2l, rr, cc).float()
+        exact = plain(f1.float(), f2l.float(), rr, cc)
+        scale = plain(f1.float().abs(), f2l.float().abs(), rr, cc) + 1e-6
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{wrapper.__name__}: non-finite output at level {lvl}")
+        err = max(err, (got - ref).abs().max().item())
+        vs_plain = max(vs_plain, ((got - ref).abs() / scale).max().item())
+        vs_exact = max(vs_exact, ((got - exact).abs() / scale).max().item())
+    shares = tensor_shares(geo, pooled, grid_w) if takes_tiles(f1.dtype, f1.shape[2]) else [0.0] * len(pooled)
+    return err, vs_plain, vs_exact, shares
+
+
+def check_corr_patch_ragged(g, dev, wrapper, plain) -> None:
+    """The correlation-patch kernel on ragged shapes: 2 x 13 x 17 = 442
+    queries (no block of 8 divides 221 per image; 4 x 8 tiles are partial in
+    both directions), C below and off the 16-byte vector width, both radii,
+    flows that push whole windows off the plane.  The bf16 cases with C = 32
+    and 48 run the tile kernel on smooth flows, whose tiles' boxes are partly
+    clamped at the plane's edges and take the tensor-core path.  Limits as in
+    check_corr_patch."""
+    name = wrapper.__name__
+    for c, r, dtype, levels, kind in ((32, 3, torch.float32, 3, "independent"),
+                                      (20, 4, torch.bfloat16, 2, "independent"),
+                                      (6, 3, torch.float32, 2, "independent"),
+                                      (40, 3, torch.bfloat16, 3, "independent"),
+                                      (32, 4, torch.bfloat16, 3, "smooth"),
+                                      (48, 3, torch.bfloat16, 2, "smooth")):
+        f1, pooled, flow = corr_patch_draw(g, dev, 2, 13, 17, c, levels, dtype, kind,
+                                           20.0 if kind == "independent" else 6.0)
+        err, vs_plain, vs_exact, shares = corr_patch_compare(wrapper, plain, f1, pooled, flow, r)
+        edges = window_edges(flow, r, [p.shape[1:3] for p in pooled], 0)
+        log(f"{name} ragged 2x13x17 C={c} r={r} L={levels} {dtype} {kind}: max |kernel - plain| = {err:.3e} "
+            f"= {vs_plain:.3e} scale, |kernel - f32| = {vs_exact:.3e} scale; tensor-path tiles per level "
+            f"{[round(x, 3) for x in shares]}; plane edges straddled (l, r, t, b) per level {edges}")
+        lim_plain, lim_exact = (1e-5, 1e-5) if dtype == torch.float32 else (1.01 * 2**-7, 1.01 * 2**-8)
+        if not (vs_plain <= lim_plain and vs_exact <= lim_exact):
+            raise AssertionError(f"{name} disagrees on a ragged shape: {vs_plain} {vs_exact}")
+        if kind == "smooth" and not (min(shares) > 0 and any(any(e) for e in edges)):
+            raise AssertionError(f"{name}: the ragged smooth draw misses the tensor path or the plane "
+                                 f"edges: {shares} {edges}")
+
+
 def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
     """The correlation-patch kernel through one of its two wrappers (K3
     `flash2_patch_level`, K5 `flash_patch_level`), with the query grid's
-    width as the path passes it: ragged shapes, then lookups of the untiled
+    width as the path passes it: ragged shapes (check_corr_patch_ragged),
+    then lookups of the untiled
     1920x1080 window: 3 x 135x240 queries, C = 256, radius 4, 4 pooled
     levels, bf16, on four flow fields (flow_field): independent +-40 cells,
     where the tiles take the per-query path at the fine levels; smooth
@@ -502,73 +604,17 @@ def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
 
     `also` = ((B, h, w), levels): one more bf16 shape the wrapper's path
     gives it, held to the same limits."""
-    from tpuflow_torch.core.corr import _pooled_features
-    from tpuflow_torch.kernels.flashcorr2 import takes_tiles
-
     name = wrapper.__name__
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-
-    def draw(b, h, w, c, levels, dtype, kind, amp=40.0):
-        f1 = torch.randn((b, h * w, c), generator=g, device=dev).to(dtype)
-        pooled = [p.contiguous() for p in _pooled_features(
-            torch.randn((b, h, w, c), generator=g, device=dev).to(dtype), levels)]
-        return f1, pooled, flow_field(g, dev, b, h, w, kind, amp)
-
-    def compare(f1, pooled, flow, r):
-        """(max |kernel - plain|, worst kernel-vs-plain, worst kernel-vs-f32,
-        per-level tensor-path shares), the middle two in units of the entry's
-        scale."""
-        grid_w = flow.shape[2]
-        err = vs_plain = vs_exact = 0.0
-        geo = []
-        for lvl, f2l in enumerate(pooled):
-            rr, cc = patch_geometry(flow, lvl, f2l.shape[1], f2l.shape[2], r)
-            geo.append((rr, cc))
-            got = wrapper(f1, f2l, rr, cc, grid_w=grid_w).float()
-            ref = plain(f1, f2l, rr, cc).float()
-            exact = plain(f1.float(), f2l.float(), rr, cc)
-            scale = plain(f1.float().abs(), f2l.float().abs(), rr, cc) + 1e-6
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: non-finite output at level {lvl}")
-            err = max(err, (got - ref).abs().max().item())
-            vs_plain = max(vs_plain, ((got - ref).abs() / scale).max().item())
-            vs_exact = max(vs_exact, ((got - exact).abs() / scale).max().item())
-        shares = tensor_shares(geo, pooled, grid_w) if takes_tiles(f1.dtype, f1.shape[2]) else [0.0] * len(pooled)
-        return err, vs_plain, vs_exact, shares
-
-    # Ragged: 2 x 13 x 17 = 442 queries (no block of 8 divides 221 per
-    # image; 4 x 8 tiles are partial in both directions), C below and off
-    # the 16-byte vector width, both radii, flows that push whole windows off
-    # the plane.  The bf16 cases with C = 32 and 48 run the tile kernel on
-    # smooth flows, whose tiles' boxes are partly clamped at the plane's
-    # edges and take the tensor-core path.
-    for c, r, dtype, levels, kind in ((32, 3, torch.float32, 3, "independent"),
-                                      (20, 4, torch.bfloat16, 2, "independent"),
-                                      (6, 3, torch.float32, 2, "independent"),
-                                      (40, 3, torch.bfloat16, 3, "independent"),
-                                      (32, 4, torch.bfloat16, 3, "smooth"),
-                                      (48, 3, torch.bfloat16, 2, "smooth")):
-        f1, pooled, flow = draw(2, 13, 17, c, levels, dtype, kind, 20.0 if kind == "independent" else 6.0)
-        err, vs_plain, vs_exact, shares = compare(f1, pooled, flow, r)
-        edges = window_edges(flow, r, [p.shape[1:3] for p in pooled], 0)
-        log(f"{name} ragged 2x13x17 C={c} r={r} L={levels} {dtype} {kind}: max |kernel - plain| = {err:.3e} "
-            f"= {vs_plain:.3e} scale, |kernel - f32| = {vs_exact:.3e} scale; tensor-path tiles per level "
-            f"{[round(x, 3) for x in shares]}; plane edges straddled (l, r, t, b) per level {edges}")
-        lim_plain, lim_exact = (1e-5, 1e-5) if dtype == torch.float32 else (1.01 * 2**-7, 1.01 * 2**-8)
-        if not (vs_plain <= lim_plain and vs_exact <= lim_exact):
-            raise AssertionError(f"{name} disagrees on a ragged shape: {vs_plain} {vs_exact}")
-        if kind == "smooth" and not (min(shares) > 0 and any(any(e) for e in edges)):
-            raise AssertionError(f"{name}: the ragged smooth draw misses the tensor path or the plane "
-                                 f"edges: {shares} {edges}")
+    check_corr_patch_ragged(g, dev, wrapper, plain)
 
     c, r = FEATURE_DIM, 4
     side = 2 * r + 2
     fields, worst = {}, 0.0
     for (b, h, w), levels, kind in ([(*also, "independent")] if also else []) + [
             (UNTILED_QUERIES, 4, kind) for kind in ("small", "mixed", "independent", "smooth")]:
-        f1, pooled, flow = draw(b, h, w, c, levels, torch.bfloat16, kind)
-        err, vs_plain, vs_exact, shares = compare(f1, pooled, flow, r)
+        f1, pooled, flow = corr_patch_draw(g, dev, b, h, w, c, levels, torch.bfloat16, kind)
+        err, vs_plain, vs_exact, shares = corr_patch_compare(wrapper, plain, f1, pooled, flow, r)
         worst = max(worst, err)
         log(f"{name} [{b},{h * w},{c}] r={r} L={levels} bf16 {kind}: max |kernel - plain| = {err:.3e} = "
             f"{vs_plain:.3e} scale (limit 2^-7), max |kernel - f32| = {vs_exact:.3e} scale (limit 2^-8); "
@@ -1236,6 +1282,338 @@ def phase_formulations(engine, kernels) -> dict:
     return out
 
 
+# ---- other configurations and engine entries ------------------------------
+
+SMALL_CLIP = (5, 128, 256)       # frames, H, W of the every-entry-point runs: two tiles at tile_size 128
+BOF_FRAMES = 6                   # 1080p frames of the BOF tiled run
+CNN_FRAMES = 4                   # 1080p frames of the cnn tiled run
+BATCH_FRAMES = 4                 # 1080p frames of the window-batch and pairs runs
+UHD_H, UHD_W = 2160, 3840
+SINGLE_TILE_HW = (480, 640)      # a clip that fits one tile
+
+
+def expected_launches(kernels, **counts) -> dict:
+    want = dict.fromkeys(kernels, 0)
+    want.update(counts)
+    return want
+
+
+def tiled_run(engine, kernels, frames, **kw):
+    """(flows, wall s, peak GiB, launches) of one compute_flows_tiled_stride1
+    call, the counters zeroed just before it and read just after."""
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    flows, wall = timed_call(lambda: engine.compute_flows_tiled_stride1(frames, **kw))
+    launches = read_launches(kernels)
+    if flows.shape != frames.shape[:3] + (2,) or not np.isfinite(flows).all():
+        raise AssertionError(f"bad flows: shape {flows.shape}")
+    return flows, wall, torch.cuda.max_memory_allocated() / 2**30, launches
+
+
+def phase_entry_points(engine, what: str) -> list:
+    """Every VideoFlow entry point of `engine` on a small clip (SMALL_CLIP,
+    tile_size 128): finite flows of the right shape."""
+    n, h, w = SMALL_CLIP
+    frames = synthetic_clip(n, h, w, SEED + 11)
+    outs = {
+        "compute_flow": engine.compute_flow(frames, n // 2)[None],
+        "compute_flow_batch": engine.compute_flow_batch(frames, [0, n - 1]),
+        "compute_flows_strided": engine.compute_flows_strided(frames),
+        "compute_flow_tiled": engine.compute_flow_tiled(frames, n // 2, tile_size=128)[None],
+        "compute_flows_tiled_stride1": engine.compute_flows_tiled_stride1(frames, tile_size=128),
+    }
+    for name, out in outs.items():
+        if out.shape[1:] != (h, w, 2) or not np.isfinite(out).all():
+            raise AssertionError(f"{what} {name}: bad flows, shape {out.shape}")
+    log(f"{what}: {', '.join(outs)} on {n} frames of {w}x{h}: finite flows of the right shape")
+    return sorted(outs)
+
+
+def phase_bof(kernels) -> dict:
+    """VideoFlow BOF, ModelConfig(architecture='bof', sequence_length=3), at
+    full width (Twins, 4 levels, radius 4, 12 iterations, bf16, seeded
+    random weights): tiled stride-1 on BOF_FRAMES 1920x1080 frames (one
+    interior frame per window), one untiled 1920x1080 window through the
+    model (FlashCorr2, K3), whose forward and backward flows must be
+    finite, and every entry point on a small clip."""
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.core.mofnet import BOFNet
+    from tpuflow_torch.runtime.engine import FlowEngine
+
+    engine = FlowEngine(ModelConfig(architecture="bof", sequence_length=3), seed=SEED + 12)
+    engine.load_model(allow_random_init=True)
+    if type(engine.model) is not BOFNet:
+        raise AssertionError(f"architecture 'bof' built {type(engine.model).__name__}")
+    cfg = engine.config
+    frames = synthetic_clip(BOF_FRAMES, MAIN_H, MAIN_W, SEED + 12)
+    engine.compute_flows_tiled_stride1(frames[:2])                 # warm-up
+    _, wall, peak, launches = tiled_run(engine, kernels, frames)
+    want = expected_launches(kernels, dense_lookup=BOF_FRAMES * 2 * cfg.decoder_depth,
+                             flash_attention_fwd=BOF_FRAMES * cfg.decoder_depth)
+    if launches != want:
+        raise AssertionError(f"bof tiled: kernel launches {launches}, expected {want}")
+    log(f"bof tiled stride-1: {BOF_FRAMES} frames of {MAIN_W}x{MAIN_H} in {wall:.3f} s = "
+        f"{BOF_FRAMES / wall:.4f} frames/s, peak {peak:.2f} GiB, launches {launches}")
+    out = {"frames": BOF_FRAMES, "frames_per_s": BOF_FRAMES / wall, "wall_s": wall, "peak_gib": peak,
+           "launches": launches}
+
+    x = torch.from_numpy(frames[:3][None]).to(engine.device).float() / 255.0
+    with torch.inference_mode():
+        engine.model(x)                                            # warm-up
+        reset_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        (fwd, bwd), wall = timed_call(lambda: engine.model(x))
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, f in (("forward", fwd), ("backward", bwd)):
+        if tuple(f.shape) != (1, 1, MAIN_H, MAIN_W, 2) or not torch.isfinite(f).all():
+            raise AssertionError(f"bof untiled: bad {name} flow, shape {tuple(f.shape)}")
+    want = expected_launches(kernels, flash2_patch_level=2 * cfg.decoder_depth * cfg.corr_levels,
+                             flash_attention_fwd=cfg.decoder_depth)
+    if launches != want:
+        raise AssertionError(f"bof untiled: kernel launches {launches}, expected {want}")
+    log(f"bof untiled {MAIN_W}x{MAIN_H} window: {wall:.3f} s, peak {peak:.2f} GiB, launches {launches}, "
+        f"|forward| mean {fwd.abs().mean().item():.3f}, |backward| mean {bwd.abs().mean().item():.3f}")
+    out["untiled"] = {"wall_s": wall, "peak_gib": peak, "launches": launches}
+    del fwd, bwd, x
+    out["entry_points"] = phase_entry_points(engine, "bof")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cnn(kernels, twins_feature_ms: float) -> dict:
+    """VideoFlow MOF with the cnn BasicEncoder, ModelConfig(encoder='cnn'),
+    at full width: tiled stride-1 on CNN_FRAMES 1920x1080 frames, the
+    encoders' time per frame (both tiles, fnet and cnet) against Twins's in
+    the same call, and every entry point on a small clip."""
+    from tpuflow_torch.config import TILE_SIZE, ModelConfig
+    from tpuflow_torch.core.encoders import BasicEncoder
+    from tpuflow_torch.runtime.engine import FlowEngine
+
+    engine = FlowEngine(ModelConfig(encoder="cnn"), seed=SEED + 13)
+    engine.load_model(allow_random_init=True)
+    if not isinstance(engine.model.fnet, BasicEncoder):
+        raise AssertionError(f"encoder 'cnn' built {type(engine.model.fnet).__name__}")
+    cfg = engine.config
+    frames = synthetic_clip(CNN_FRAMES, MAIN_H, MAIN_W, SEED + 13)
+    tiles_info, groups = engine._tiling(MAIN_H, MAIN_W, TILE_SIZE)
+    idxs = next(iter(groups.values()))
+    with torch.inference_mode():
+        engine._tile_features(frames[0], tiles_info, idxs, 0)      # warm-up
+        feature_ms = float(np.median([timed_call(lambda: engine._tile_features(f, tiles_info, idxs, 0))[1]
+                                      for f in frames])) * 1e3
+    _, rows = device_profile(lambda: engine._tile_features(frames[0], tiles_info, idxs, 0))
+    busy = sum(r[0] for r in rows)
+    log(f"cnn encoders of one frame under torch.profiler: device busy {busy:.2f} ms")
+    for ms, count, key in rows[:8]:
+        log(f"  {ms:8.2f} ms {100 * ms / max(busy, 1e-9):5.1f} % {count:4d}x  {key[:100]}")
+    engine.compute_flows_tiled_stride1(frames[:1])                 # warm-up
+    _, wall, peak, launches = tiled_run(engine, kernels, frames)
+    want = expected_launches(kernels, dense_lookup=CNN_FRAMES * 2 * cfg.decoder_depth,
+                             flash_attention_fwd=CNN_FRAMES * cfg.decoder_depth)
+    if launches != want:
+        raise AssertionError(f"cnn tiled: kernel launches {launches}, expected {want}")
+    log(f"cnn tiled stride-1: {CNN_FRAMES} frames of {MAIN_W}x{MAIN_H} in {wall:.3f} s = "
+        f"{CNN_FRAMES / wall:.4f} frames/s, peak {peak:.2f} GiB, launches {launches}; encoders "
+        f"{feature_ms:.2f} ms per frame (Twins {twins_feature_ms:.2f} ms in this run)")
+    out = {"frames": CNN_FRAMES, "frames_per_s": CNN_FRAMES / wall, "wall_s": wall, "peak_gib": peak,
+           "launches": launches, "features_per_frame_ms": feature_ms,
+           "features_profile": [[round(ms, 3), count, key[:80]] for ms, count, key in rows[:8]],
+           "entry_points": phase_entry_points(engine, "cnn")}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_window_batch(engine, kernels) -> dict:
+    """compute_flows_tiled_stride1 on BATCH_FRAMES 1920x1080 frames with
+    window_batch 1 and 2 (after a warm-up of the batch of two), held to each
+    other as two bf16 runs (another batch may take another cuDNN algorithm;
+    whether they are bit-equal is logged), then window_batch=8, which the
+    clamp cuts to what the card's free memory holds (logged), against the
+    same flows.  Returns the timings, the peaks and window_batch=1's flows."""
+    from tpuflow_torch.config import TILE_SIZE
+
+    cfg = engine.config
+    t, depth = cfg.sequence_length, cfg.decoder_depth
+    frames = synthetic_clip(BATCH_FRAMES, MAIN_H, MAIN_W, SEED + 14)
+    groups = engine._tiling(MAIN_H, MAIN_W, TILE_SIZE)[1]
+    engine.compute_flows_tiled_stride1(frames[:2], window_batch=2)  # warm-up of a batch of two
+    out, flows = {}, {}
+    for wb in (1, 2, 8):
+        free, total = torch.cuda.mem_get_info()
+        eff = engine._clamp_window_batch(wb, t, groups)
+        flows[wb], wall, peak, launches = tiled_run(engine, kernels, frames, window_batch=wb)
+        batches = math.ceil(BATCH_FRAMES / eff)
+        want = expected_launches(kernels, dense_lookup=batches * 2 * depth, flash_attention_fwd=batches * depth)
+        if launches != want:
+            raise AssertionError(f"window_batch={wb}: kernel launches {launches}, expected {want}")
+        log(f"window_batch={wb} (runs as {eff}; card free {free / 2**30:.2f} of {total / 2**30:.2f} GiB before): "
+            f"{BATCH_FRAMES} frames in {wall:.3f} s = {BATCH_FRAMES / wall:.4f} frames/s, peak {peak:.2f} GiB, "
+            f"launches {launches}")
+        out[f"wb{wb}"] = {"runs_as": eff, "frames_per_s": BATCH_FRAMES / wall, "wall_s": wall, "peak_gib": peak,
+                          "free_gib_before": free / 2**30, "launches": launches}
+        if wb > 1:
+            out[f"wb{wb}"]["bit_equal_to_wb1"] = bool(np.array_equal(flows[wb], flows[1]))
+            out[f"wb{wb}"].update(check_flows_agree(f"window_batch={wb} vs 1", flows[wb], flows[1]))
+        torch.cuda.empty_cache()
+    if out["wb8"]["runs_as"] >= 8:
+        raise AssertionError("window_batch=8 was not clamped on this card")
+    return out, frames, flows[1], out["wb1"]["wall_s"]
+
+
+def phase_pairs(engine, kernels, frames, trio_flows, trio_wall: float) -> dict:
+    """TPUFLOW_STRIDE1=pairs: the pair-cached loop on phase_window_batch's
+    clip, one warm-up call, then timed; its flows against the trio loop's
+    (window_batch=1) as two bf16 runs.  Each window's lookups run per pair:
+    T-2 K1 launches per direction and iteration."""
+    import os
+
+    cfg = engine.config
+    n, depth = len(frames), cfg.decoder_depth
+    os.environ["TPUFLOW_STRIDE1"] = "pairs"
+    try:
+        engine.compute_flows_tiled_stride1(frames[:2])             # warm-up
+        flows, wall, peak, launches = tiled_run(engine, kernels, frames)
+    finally:
+        del os.environ["TPUFLOW_STRIDE1"]
+    want = expected_launches(kernels, dense_lookup=n * 2 * (cfg.sequence_length - 2) * depth,
+                             flash_attention_fwd=n * depth)
+    if launches != want:
+        raise AssertionError(f"pairs: kernel launches {launches}, expected {want}")
+    log(f"pairs loop: {n} frames in {wall:.3f} s = {n / wall:.4f} frames/s (trio {n / trio_wall:.4f} in this "
+        f"call), peak {peak:.2f} GiB, launches {launches}")
+    out = {"frames_per_s": n / wall, "trio_frames_per_s": n / trio_wall, "wall_s": wall, "peak_gib": peak,
+           "launches": launches, "bit_equal_to_trio": bool(np.array_equal(flows, trio_flows))}
+    out.update(check_flows_agree("pairs loop vs trio", flows, trio_flows))
+    return out
+
+
+def phase_uhd(engine, kernels) -> dict:
+    """One 3840x2160 frame (its centred 5-frame window) through
+    compute_flow_tiled: six 1080x1280 tiles of one shape group, each with
+    dense volumes of 135x160 = 21 600 cells; tile_batch=4 (chunks of 4 and
+    2), tile_batch=6, tile_batch=4 again; the flows of 4 and 6 held to each
+    other as two bf16 runs."""
+    from tpuflow_torch.config import TILE_SIZE
+
+    cfg = engine.config
+    t, depth = cfg.sequence_length, cfg.decoder_depth
+    frames = synthetic_clip(t, UHD_H, UHD_W, SEED + 15)
+    groups = engine._tiling(UHD_H, UHD_W, TILE_SIZE)[1]
+    if [(shape, len(idxs)) for shape, idxs in groups.items()] != [((UHD_H // 2, UHD_W // 3), 6)]:
+        raise AssertionError(f"4K tiles: {groups}")
+    out, flows = {"runs": []}, {}
+    for tb in (4, 6, 4):
+        reset_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        flow, wall = timed_call(lambda: engine.compute_flow_tiled(frames, t // 2, tile_batch=tb))
+        launches = read_launches(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if flow.shape != (UHD_H, UHD_W, 2) or not np.isfinite(flow).all():
+            raise AssertionError(f"4K tile_batch={tb}: bad flow, shape {flow.shape}")
+        chunks = math.ceil(6 / tb)
+        want = expected_launches(kernels, dense_lookup=chunks * 2 * depth, flash_attention_fwd=chunks * depth)
+        if launches != want:
+            raise AssertionError(f"4K tile_batch={tb}: kernel launches {launches}, expected {want}")
+        log(f"4K {UHD_W}x{UHD_H} frame, tile_batch={tb}: {wall:.3f} s, peak {peak:.2f} GiB, launches {launches}")
+        out["runs"].append({"tile_batch": tb, "wall_s": wall, "peak_gib": peak, "launches": launches})
+        flows[tb] = flow
+        torch.cuda.empty_cache()
+    out["bit_equal"] = bool(np.array_equal(flows[4], flows[6]))
+    out.update(check_flows_agree("4K tile_batch=4 vs 6", flows[4], flows[6]))
+    return out
+
+
+def phase_single_tile(engine) -> dict:
+    """A 640x480 clip fits one tile: compute_flow_tiled and
+    compute_flows_tiled_stride1 must return compute_flow's flows bit for
+    bit."""
+    n, (h, w) = 5, SINGLE_TILE_HW
+    frames = synthetic_clip(n, h, w, SEED + 16)
+    ref = [engine.compute_flow(frames, i) for i in range(n)]
+    tiled = engine.compute_flow_tiled(frames, n // 2)
+    stride1 = engine.compute_flows_tiled_stride1(frames)
+    equal = [bool(np.array_equal(stride1[i], ref[i])) for i in range(n)]
+    log(f"single tile {w}x{h}: compute_flow_tiled == compute_flow: {np.array_equal(tiled, ref[n // 2])}; "
+        f"compute_flows_tiled_stride1 == compute_flow per frame: {equal}")
+    if not (np.array_equal(tiled, ref[n // 2]) and all(equal)):
+        raise AssertionError("a frame that fits one tile does not get compute_flow's flow")
+    return {"frames": n, "shape": [h, w], "bit_equal": True}
+
+
+CHECKED_ARG = "--checked-build"
+
+
+def phase_checked_start():
+    """Starts this script in a child process with CHECKED_ARG (main_checked):
+    the bounds-checked build of every kernel, each of the six wrappers on its
+    ragged and plane-edge shapes.  A trap poisons the CUDA context, hence the
+    process of its own.  Returns the child, for phase_checked_wait."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve()
+    return subprocess.Popen([sys.executable, str(here), CHECKED_ARG], cwd=here.parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_checked_wait(child) -> dict:
+    """Waits for phase_checked_start's child; its non-zero exit fails the
+    run (the log says whether the kernel trapped)."""
+    try:
+        output, _ = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    lines = output.splitlines()
+    for line in lines:
+        if "registers" not in line and "spill" not in line:
+            log("  [checked]", line)
+    if child.returncode != 0:
+        trapped = any(k in output for k in ("unspecified launch failure", "illegal instruction",
+                                            "cudaErrorLaunchFailure"))
+        raise AssertionError(f"checked build: the child exited with {child.returncode}"
+                             f"{' after a kernel trap (bounds guard)' if trapped else ''}")
+    return json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+
+
+def main_checked() -> int:
+    """The child of phase_checked_start: every wrapper on the bounds-checked
+    libraries."""
+    from tpuflow_torch.kernels import _build
+    from tpuflow_torch.kernels.flashcorr import flash_patch_level, flash_patch_level_plain
+    from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level, flash2_patch_level_plain
+
+    phase_environment()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.serve_checked()
+    t0 = time.perf_counter()
+    _build.build(checked=True)
+    build_s = time.perf_counter() - t0
+    served = {name: _build.library(name)._name for name in _build.SOURCES}
+    if not all("-checked-" in path for path in served.values()):
+        raise AssertionError(f"the wrappers are not served the checked build: {served}")
+    kernels = kernel_counters()
+    reset_launches(kernels)
+    check_dense_lookup_ragged(torch.Generator(device=dev).manual_seed(SEED), dev)
+    check_flash_attention_ragged(qkv_draws(dev))
+    for wrapper, plain in ((flash2_patch_level, flash2_patch_level_plain),
+                           (flash_patch_level, flash_patch_level_plain)):
+        check_corr_patch_ragged(torch.Generator(device=dev).manual_seed(SEED + 3), dev, wrapper, plain)
+    for layout in ("flat", "band"):
+        check_volume_patch_ragged(torch.Generator(device=dev).manual_seed(SEED + 4), dev, layout)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a wrapper was not launched on the checked build: {launches}")
+    log(f"checked build: {build_s:.1f} s to build, every guard held on the ragged shapes, launches {launches}")
+    print(json.dumps({"build_s": build_s, "launches": launches}))
+    return 0
+
+
+
 def phase_parity() -> dict:
     """The same weights and clip in f32 (volumes too) on the CPU and on the
     card, full configuration: tiled (two 128x128 tiles per frame, dense
@@ -1274,23 +1652,36 @@ def phase_parity() -> dict:
     return rel
 
 
+def kernel_counters() -> dict:
+    """The six kernels' wrappers by name; each counts its launches."""
+    from tpuflow_torch.kernels.bandlookup import band_patch_level
+    from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
+    from tpuflow_torch.kernels.flashattn import flash_attention_fwd
+    from tpuflow_torch.kernels.flashcorr import flash_patch_level
+    from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
+
+    return {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
+                                       dense_patch_level, flash_patch_level, band_patch_level)}
+
+
 def main() -> int:
     smi = phase_environment()
     dev = torch.device("cuda", torch.cuda.current_device())
     try:
         from tpuflow_torch.config import ModelConfig
-        from tpuflow_torch.kernels.bandlookup import band_patch_level
-        from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
-        from tpuflow_torch.kernels.flashattn import flash_attention_fwd
         from tpuflow_torch.kernels.flashcorr import flash_patch_level, flash_patch_level_plain
         from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level, flash2_patch_level_plain
         from tpuflow_torch.runtime.engine import FlowEngine
     except ImportError as exc:
         raise SystemExit(f"chip_smoke: run from the repository root ({exc})")
-    kernels = {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
-                                          dense_patch_level, flash_patch_level, band_patch_level)}
+    kernels = kernel_counters()
 
-    phase_build()
+    # The checked build runs in a child process while this one builds.
+    child = phase_checked_start()
+    try:
+        phase_build()
+    finally:
+        checked = phase_checked_wait(child)
     rows = [
         check_dense_lookup(dev),
         check_flash_attention(dev),
@@ -1316,8 +1707,17 @@ def main() -> int:
     strided = phase_strided(engine, kernels)
     torch.cuda.empty_cache()
     forms = phase_formulations(engine, kernels)
+    torch.cuda.empty_cache()
+    batching, clip, trio_flows, trio_wall = phase_window_batch(engine, kernels)
+    pairs = phase_pairs(engine, kernels, clip, trio_flows, trio_wall)
+    del clip, trio_flows
+    torch.cuda.empty_cache()
+    uhd = phase_uhd(engine, kernels)
+    single = phase_single_tile(engine)
     del engine
     torch.cuda.empty_cache()
+    bof = phase_bof(kernels)
+    cnn = phase_cnn(kernels, e2e["stages_ms"]["features_per_frame"])
     parity = phase_parity()
 
     # Each kernel's launches on the path that runs it, counters zeroed just
@@ -1335,9 +1735,11 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was launched on no path")
         if "at_untiled_window" in row:
             row["at_untiled_window"]["launches"] = untiled["auto"]["launches"][row["name"]]
+        row["checked_build_launches"] = checked["launches"][row["name"]]
     log(json.dumps({"end_to_end": {k: v for k, v in e2e.items() if k != "launches"},
                     "untiled": untiled, "strided": strided, "formulations": forms,
-                    "parity_rel_err": parity}))
+                    "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
+                    "bof": bof, "cnn": cnn, "checked_build": checked, "parity_rel_err": parity}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1347,4 +1749,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [CHECKED_ARG]:
+        sys.exit(main_checked())
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: python3 chip_smoke.py   (no arguments; {CHECKED_ARG} is its own child)")
     sys.exit(main())

@@ -16,13 +16,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tpuflow.core.encoders import ResidualBlock as JaxResidualBlock
+from tpuflow.core.mofnet import BOFNet as JaxBOFNet
 from tpuflow.core.mofnet import MOFNet as JaxMOFNet
 from tpuflow.core.sk import SKUpdateBlockMOF as JaxSKUpdateBlockMOF
 from tpuflow.core.update import upsample_flow_convex as jax_upsample_flow_convex
 from tpuflow.runtime.convert import unflatten_params
 from tests.mirrors.mof_torch import MOFNetMirror
 
-from tpuflow_torch.core.mofnet import MOFNet
+from tpuflow_torch.core.encoders import BasicEncoder, ResidualBlock
+from tpuflow_torch.core.mofnet import BOFNet, MOFNet
 from tpuflow_torch.core.sk import SKUpdateBlockMOF
 from tpuflow_torch.core.update import upsample_flow_convex
 from tpuflow_torch.runtime.convert import (
@@ -36,14 +39,17 @@ CFG = dict(corr_levels=2, corr_radius=2, decoder_depth=2)
 H, W = 72, 88
 
 
-def random_flax_params(model, seed: int, h: int = H, w: int = W):
+def random_flax_params(model, seed: int, h: int = H, w: int = W, example=None):
     """A flat flax param tree for `model` ('params/...' paths), drawn with
-    numpy: kernels N(0, 1/fan_in), biases, LayerNorm scales and GMA's
-    gamma off their constant inits so that a misrouted leaf shows in the
-    outputs.  The tree's shapes come from jax.eval_shape, which traces the
-    init without compiling it.  The flow head's output conv is scaled down
-    so that flows stay within a few pixels and the lookups read real taps."""
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 3, h, w, 3)))
+    numpy: kernels N(0, 1/fan_in), biases, LayerNorm and GroupNorm scales
+    and GMA's gamma off their constant inits so that a misrouted leaf shows
+    in the outputs.  The tree's shapes come from jax.eval_shape, which traces
+    the init (on `example`, default a 3-frame window) without compiling it.
+    The flow head's output conv is scaled down so that flows stay within a
+    few pixels and the lookups read real taps."""
+    if example is None:
+        example = jnp.zeros((1, 3, h, w, 3))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), example)
     rng = np.random.default_rng(seed)
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
@@ -110,6 +116,10 @@ def test_names_and_shapes_match_upstream():
         ("params/iteration/update_block/aggregator/gamma", "update_block.aggregator.gamma"),
         ("params/iteration/update_block/encoder/init_hidden_state",
          "update_block.encoder.init_hidden_state"),
+        ("params/fnet/conv1/kernel", "fnet.conv1.weight"),
+        ("params/fnet/norm1/scale", "fnet.norm1.weight"),
+        ("params/cnet/layer2_0/downsample/kernel", "cnet.layer2.0.downsample.weight"),
+        ("params/cnet/layer3_1/norm2/bias", "cnet.layer3.1.norm2.bias"),
     ],
 )
 def test_flax_key_rewrite(flax_path, torch_key):
@@ -392,10 +402,11 @@ def test_compute_flow_batch_matches_jax(untiled_engines):
 
 
 def test_compute_flows_strided_matches_jax(untiled_engines):
-    """Windows start at -1, 2, 5: two batches of two, the second filled with
-    a window whose flows are dropped.  Frames 1 and 4 are the middle
-    interiors of their windows, and there the strided flow is the stride-1
-    flow of that frame: the same window, the same interior."""
+    """Windows start at -1, 2, 5: the port runs a batch of two, then a batch
+    of one; the JAX engine fills its second batch with a window whose flows
+    it drops.  Frames 1 and 4 are the middle interiors of their windows,
+    and there the strided flow is the stride-1 flow of that frame: the same
+    window, the same interior."""
     frames, jeng, eng = untiled_engines
     got = eng.compute_flows_strided(frames, window_batch=2)
     assert got.shape == (7, H - 2, W - 2, 2) and np.isfinite(got).all()
@@ -407,12 +418,14 @@ def test_compute_flows_strided_matches_jax(untiled_engines):
 
 
 def test_untiled_and_single_tile_agree(untiled_engines):
-    """A frame that fits one tile runs in tile mode as one tile: the same
-    window through the same model."""
+    """A clip whose frames fit one tile goes to compute_flow from both tile
+    entry points, as in the JAX engine (tpuflow/runtime/engine.py:487-488,
+    683-693): their flows are compute_flow's, bit for bit."""
     frames, _, eng = untiled_engines
-    np.testing.assert_allclose(
-        eng.compute_flow_tiled(frames, 2, tile_size=96), eng.compute_flow(frames, 2), rtol=2e-3, atol=2e-3
-    )
+    np.testing.assert_array_equal(eng.compute_flow_tiled(frames, 2, tile_size=96), eng.compute_flow(frames, 2))
+    stride1 = eng.compute_flows_tiled_stride1(frames[:3], tile_size=96)
+    for i in range(3):
+        np.testing.assert_array_equal(stride1[i], eng.compute_flow(frames[:3], i))
 
 
 def test_get_model_info_matches_jax(untiled_engines):
@@ -422,3 +435,101 @@ def test_get_model_info_matches_jax(untiled_engines):
     _, jeng, eng = untiled_engines
     assert eng.get_model_info() == jeng.get_model_info()
     assert FlowEngine(ModelConfig(**CFG), device="cpu").get_model_info() == {"status": "not_loaded"}
+
+
+# ---- the cnn encoder and BOFNet -------------------------------------------
+
+
+@pytest.mark.parametrize("norm", ["instance", "group", "batch", "none"])
+@pytest.mark.parametrize(
+    "cin,planes,stride", [(16, 16, 1), (16, 24, 1), (16, 24, 2)], ids=["same", "widen", "stride2"]
+)
+def test_residual_block_matches_flax(norm, cin, planes, stride):
+    """One ResidualBlock per norm, with and without the 1x1 `downsample`
+    (width or stride changes), on an 18x23 grid: the stride-2 convs pad as
+    flax 'SAME' does, unevenly on the even axis."""
+    rng = np.random.default_rng(20 + cin + planes + stride)
+    x = rng.standard_normal((2, 18, 23, cin)).astype(np.float32)
+    jblock = JaxResidualBlock(planes, stride, norm)
+    flat = random_flax_params(jblock, seed=21, example=jnp.zeros((1, 18, 23, cin)))
+    ref = np.asarray(jblock.apply(unflatten_params(flat), jnp.asarray(x)))
+    block = ResidualBlock(cin, planes, stride, norm).eval()
+    block.load_state_dict(state_dict_from_jax(flat), strict=True)
+    assert (block.downsample is None) == (stride == 1 and cin == planes)
+    with torch.no_grad():
+        got = block(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape == (2, -(-18 // stride), -(-23 // stride), planes)
+    # f32 both sides: two 3x3 convs and their norms, summed in another order.
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def cnn_models():
+    """The JAX MOFNet and the port's with the cnn encoder (fnet instance
+    norm, cnet the 'batch' stand-in) on one random flax param tree."""
+    jmodel = JaxMOFNet(
+        encoder="cnn", dtype=jnp.float32, corr_dtype=jnp.float32,
+        dense_lookup="xla", gma_impl="xla", **CFG,
+    )
+    flat = random_flax_params(jmodel, seed=7)
+    port = MOFNet(encoder="cnn", corr_dtype=torch.float32, **CFG).eval()
+    port.load_state_dict(state_dict_from_jax(flat), strict=True)
+    return jmodel, unflatten_params(flat), flat, port
+
+
+def test_cnn_conversion_is_total(cnn_models):
+    _, _, flat, port = cnn_models
+    sd = state_dict_from_jax(flat)
+    assert len(sd) == len(flat) and set(sd) == set(port.state_dict())
+    assert isinstance(port.fnet, BasicEncoder) and isinstance(port.cnet, BasicEncoder)
+    assert "fnet.norm1.weight" in sd and "cnet.norm1.weight" not in sd   # the stem's norm: instance only
+
+
+def test_basic_encoder_frame_features_match_flax(cnn_models):
+    """fnet and cnet (BasicEncoder) through frame_features, which scales the
+    frames to [-1, 1] for this encoder too."""
+    jmodel, params, _, port = cnn_models
+    frames = np.random.default_rng(8).random((2, H, W, 3), np.float32)
+    jf, jc = jax.jit(lambda p, x: jmodel.apply(p, x, method="frame_features"))(params, jnp.asarray(frames))
+    with torch.no_grad():
+        tf, tc = port.frame_features(torch.from_numpy(frames))
+    assert tuple(tf.shape) == (2, H // 8, W // 8, 256) and tuple(tc.shape) == (2, H // 8, W // 8, 256)
+    # As the Twins test: f32 both sides, ~10 layers summed in another order.
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-4)
+
+
+def test_cnn_mofnet_forward_matches_flax(cnn_models):
+    jmodel, params, _, port = cnn_models
+    frames = np.random.default_rng(9).random((1, 5, H, W, 3), np.float32)
+    jf, jb = jax.jit(jmodel.apply)(params, jnp.asarray(frames))
+    with torch.no_grad():
+        tf, tb = port(torch.from_numpy(frames))
+    # As test_mofnet_forward_matches_flax.
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=2e-3, atol=2e-3)
+
+
+def test_bofnet_forward_matches_flax(models):
+    """BOFNet at T = 3 (one interior frame, its forward and backward flows),
+    built by build_model for architecture 'bof', against the JAX BOFNet on
+    the same weights (BOF's param tree is MOF's)."""
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.runtime.engine import build_model
+
+    _, params, flat, _ = models
+    frames = np.random.default_rng(10).random((1, 3, H, W, 3), np.float32)
+    jbof = JaxBOFNet(
+        encoder="twins", dtype=jnp.float32, corr_dtype=jnp.float32,
+        dense_lookup="xla", gma_impl="xla", **CFG,
+    )
+    jf, jb = jax.jit(jbof.apply)(params, jnp.asarray(frames))
+    port = build_model(ModelConfig(architecture="bof", sequence_length=3, **CFG), device="cpu")
+    assert type(port) is BOFNet
+    port.corr_dtype = torch.float32
+    port.load_state_dict(state_dict_from_jax(flat), strict=True)
+    with torch.no_grad():
+        tf, tb = port(torch.from_numpy(frames))
+    assert tuple(tf.shape) == tuple(tb.shape) == (1, 1, H, W, 2)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=2e-3, atol=2e-3)

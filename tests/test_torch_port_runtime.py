@@ -134,10 +134,110 @@ def test_random_init_is_seeded():
 
 
 def test_unported_paths_name_their_slice():
-    with pytest.raises(NotImplementedError, match="BOFNet"):
-        FlowEngine(ModelConfig(architecture="bof", **TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="cnn"):
-        FlowEngine(ModelConfig(encoder="cnn", **TINY), device="cpu")
+    """BOF and the cnn encoder, once refused as later slices, build now; only
+    MemFlow still names its slice (test_memflow_names_its_slice)."""
+    from tpuflow_torch.core.encoders import BasicEncoder
+    from tpuflow_torch.core.mofnet import BOFNet
+
+    assert type(FlowEngine(ModelConfig(architecture="bof", **TINY), device="cpu").model) is BOFNet
+    model = FlowEngine(ModelConfig(encoder="cnn", **TINY), device="cpu").model
+    assert isinstance(model.fnet, BasicEncoder) and isinstance(model.cnet, BasicEncoder)
+    assert isinstance(model.cnet.norm1, torch.nn.Identity)      # the stem's norm: 'instance' only
+
+
+@pytest.mark.parametrize(
+    "cfg", [dict(architecture="bof", sequence_length=3), dict(architecture="bof"), dict(encoder="cnn")],
+    ids=["bof-T3", "bof-T5", "cnn"],
+)
+def test_every_entry_point_runs(cfg):
+    """A BOF or cnn engine with random weights through every VideoFlow entry
+    point on a small clip: 24x40 frames, two 24x24 tiles at tile_size=24."""
+    eng = FlowEngine(ModelConfig(**cfg, **TINY), device="cpu")
+    eng.load_model(allow_random_init=True)
+    frames = np.random.default_rng(5).integers(0, 256, (5, 24, 40, 3), dtype=np.uint8)
+    outs = {
+        "compute_flow": eng.compute_flow(frames, 2)[None],
+        "compute_flow_batch": eng.compute_flow_batch(frames, [0, 4]),
+        "compute_flows_strided": eng.compute_flows_strided(frames),
+        "compute_flow_tiled": eng.compute_flow_tiled(frames, 2, tile_size=24, tile_batch=1)[None],
+        "compute_flows_tiled_stride1": eng.compute_flows_tiled_stride1(frames, tile_size=24, window_batch=2),
+    }
+    for name, out in outs.items():
+        assert out.shape[1:] == (24, 40, 2) and np.isfinite(out).all(), name
+        assert np.abs(out).max() > 0, name
+    np.testing.assert_allclose(outs["compute_flows_tiled_stride1"][2], outs["compute_flow_tiled"][0],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cfg", [dict(architecture="bof", sequence_length=3), dict(encoder="cnn")],
+                         ids=["bof", "cnn"])
+def test_get_model_info_matches_jax(cfg):
+    """The architecture (BOF) and the rest of the record as the JAX engine
+    reports them (tpuflow/runtime/engine.py:926-942)."""
+    from tpuflow.config import ModelConfig as JaxModelConfig
+    from tpuflow.runtime.engine import FlowEngine as JaxFlowEngine
+
+    jeng = JaxFlowEngine(JaxModelConfig(**cfg, **TINY), params={})
+    jeng.load_model()
+    eng = FlowEngine(ModelConfig(**cfg, **TINY), device="cpu")
+    eng.load_model(allow_random_init=True)
+    assert eng.get_model_info() == jeng.get_model_info()
+    assert eng.get_model_info()["architecture"] == cfg.get("architecture", "mof").upper()
+
+
+def test_get_memory_usage_matches_jax_on_cpu():
+    from tpuflow.config import ModelConfig as JaxModelConfig
+    from tpuflow.runtime.engine import FlowEngine as JaxFlowEngine
+
+    ref = JaxFlowEngine(JaxModelConfig(**TINY), params={}).get_memory_usage()
+    assert FlowEngine(ModelConfig(**TINY), device="cpu").get_memory_usage() == ref
+
+
+def test_dense_volume_bytes_counts_the_pyramid():
+    from tpuflow_torch.core.corr import DenseCorrPyramid, dense_volume_bytes
+
+    for h8, w8, levels, dtype in ((9, 11, 2, torch.float32), (13, 7, 4, torch.bfloat16)):
+        f = torch.randn(2, h8, w8, 16).to(dtype)
+        pyr = DenseCorrPyramid.build(f, f, levels)
+        assert sum(v.numel() * v.element_size() for v in pyr.pyramid) == 2 * dense_volume_bytes(h8, w8, levels, dtype)
+
+
+@pytest.mark.parametrize("impl", ["auto", "dense", "flash2", "materialized"])
+def test_window_batch_clamp_matches_jax(impl, monkeypatch, capsys):
+    """_clamp_window_batch against the JAX engine's for the same tile groups
+    (1080p and 4K at tile_size 1280) and budgets (TPUFLOW_WB_HBM_BUDGET), the
+    JAX one counting the port's volume bytes (its own count is of the TPU's
+    padded layout)."""
+    from tpuflow.config import ModelConfig as JaxModelConfig
+    from tpuflow.runtime.engine import FlowEngine as JaxFlowEngine
+    from tpuflow_torch.core.corr import dense_volume_bytes
+
+    cfg = dict(TINY, corr_impl=impl)
+    eng = FlowEngine(ModelConfig(**cfg), device="cpu")
+    jeng = JaxFlowEngine(JaxModelConfig(**cfg), params={})
+    monkeypatch.setattr(
+        "tpuflow.core.corr.dense_volume_bytes",
+        lambda h8, w8, *a, **k: dense_volume_bytes(h8, w8, eng.model.corr_levels, eng.model.corr_dtype),
+    )
+    clamped = 0
+    for w, h in ((1920, 1080), (3840, 2160)):
+        groups = eng._tiling(h, w, 1280)[1]
+        per_win = max(2 * 3 * len(idxs) * dense_volume_bytes(-(-th // 8), -(-tw // 8), eng.model.corr_levels)
+                      for (th, tw), idxs in groups.items())
+        for budget in (1e6, per_win * 2.5, per_win * 10):
+            monkeypatch.setenv("TPUFLOW_WB_HBM_BUDGET", str(budget))
+            for wb in (1, 2, 4, 8):
+                got = eng._clamp_window_batch(wb, 5, groups)
+                assert got == jeng._clamp_window_batch(wb, 5, groups), (w, budget, wb)
+                clamped += got < wb
+    capsys.readouterr()
+    assert (clamped > 0) == (impl != "flash2")
+
+
+def test_window_batch_not_clamped_on_cpu_without_budget(monkeypatch):
+    monkeypatch.delenv("TPUFLOW_WB_HBM_BUDGET", raising=False)
+    eng = FlowEngine(ModelConfig(**TINY), device="cpu")
+    assert eng._clamp_window_batch(64, 5, eng._tiling(2160, 3840, 1280)[1]) == 64
 
 
 def test_memflow_names_its_slice():

@@ -53,6 +53,17 @@ def corr_feature_dim(num_levels: int, radius: int) -> int:
     return num_levels * (2 * radius + 1) ** 2
 
 
+def dense_volume_bytes(h8: int, w8: int, num_levels: int = 4, dtype=torch.bfloat16) -> int:
+    """Device bytes of ONE direction's DenseCorrPyramid for an [h8, w8]
+    feature grid, per batch item: the port stores each level unpadded as
+    [h8*w8, lh, lw] (the JAX package's copy, tpuflow/core/corr.py:807,
+    counts its TPU-aligned grouped layout instead)."""
+    nq = h8 * w8
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return sum(nq * lh * lw * itemsize
+               for lh, lw in (pyramid_level_dims(h8, w8, lvl) for lvl in range(num_levels)))
+
+
 def all_pairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
     """Full cost volume [B, H, W, H, W] between two [B, H, W, C] maps,
     f32-accumulated, scaled by 1/sqrt(C), in the features' dtype."""

@@ -1,6 +1,16 @@
-"""Twins-SVT feature/context encoder (port of tpuflow/core/encoders.py's
-TwinsSVT): timm twins_svt_large truncated to its first two stages,
-[B, H, W, 3] -> [B, H/8, W/8, 256].
+"""Feature/context encoders (port of tpuflow/core/encoders.py), NHWC in and
+out, [B, H, W, 3] -> [B, H/8, W/8, C]:
+
+- `TwinsEncoder` ('twins', the upstream checkpoints' backbone): timm
+  twins_svt_large truncated to its first two stages, C = 256.
+- `BasicEncoder` ('cnn'): the RAFT-style residual CNN of the JAX package,
+  conv 7x7/2, three pairs of `ResidualBlock`s (64, 96/2, 128/2) and a 1x1 to
+  C.  Its norms are flax GroupNorms (epsilon 1e-6, statistics in f32):
+  'instance' one group per channel, 'group' 8 groups, 'batch' one group (the
+  JAX package's frozen-BN stand-in), 'none'.  As in the JAX package, the
+  stem's norm exists only for 'instance'.
+
+Twins:
 
 Stage hyper-parameters (timm): dims (128, 256), depths (2, 2), heads (4, 8),
 sub-sampling ratios (8, 4), window 7, MLP ratio 4.  Blocks alternate
@@ -13,7 +23,11 @@ reference runs: at a 270x240 stage-1 grid with sr=8 that gives 34x30 keys,
 where upstream timm (padding 0) gives 33x30.
 
 State-dict names: fnet.svt.patch_embeds.{i}.proj|norm, fnet.svt.pos_block.
-{i}.proj.0, fnet.svt.blocks.{i}.{j}.{norm1,attn.*,norm2,mlp.fc1,mlp.fc2}.
+{i}.proj.0, fnet.svt.blocks.{i}.{j}.{norm1,attn.*,norm2,mlp.fc1,mlp.fc2};
+for the cnn encoder fnet.conv1, fnet.norm1, fnet.layer{i}.{j}.{conv1,norm1,
+conv2,norm2,downsample,norm3}, fnet.conv2 (the JAX package's flax names
+with `layer{i}_{j}` written `layer{i}.{j}`).  The cnn encoder has no
+upstream checkpoint.
 """
 
 from __future__ import annotations
@@ -219,12 +233,111 @@ class TwinsEncoder(nn.Module):
         return self.svt(x)
 
 
-def make_encoder(kind: str, output_dim: int = 256) -> nn.Module:
+# ---- the cnn encoder ------------------------------------------------------
+
+
+class SameConv2d(nn.Conv2d):
+    """A k x k stride-s conv (k odd) padded as flax's default 'SAME' pads:
+    k // 2 on each side at stride 1, same_pad_strided above it."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1):
+        super().__init__(in_ch, out_ch, k, stride, padding=k // 2 if stride == 1 else 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride[0] > 1:
+            x = same_pad_strided(x, self.kernel_size[0], self.stride[0])
+        return super().forward(x)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax GroupNorm on NCHW: epsilon 1e-6, statistics, normalisation and
+    the affine in f32 whatever the input's dtype, the result cast back.
+    The statistics are one reduction over each group's channels and pixels
+    in whatever memory layout the convolution left (channels-last here):
+    F.group_norm's per-row moments kernel took 87 % of the cnn encoders'
+    device time on that layout (an H100, 1080p tiles)."""
+
+    def __init__(self, num_groups: int, channels: int):
+        super().__init__(num_groups, channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        xf = x.float().reshape(n, self.num_groups, c // self.num_groups, h, w)
+        var, mean = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, correction=0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(n, c, h, w)
+        return (y * self.weight.float()[:, None, None] + self.bias.float()[:, None, None]).to(x.dtype)
+
+
+NORMS = ("instance", "group", "batch", "none")
+
+
+def make_norm(norm: str, channels: int) -> nn.Module:
+    if norm == "instance":
+        return GroupNorm(channels, channels)
+    if norm == "group":
+        return GroupNorm(8, channels)
+    if norm == "batch":
+        return GroupNorm(1, channels)
+    if norm == "none":
+        return nn.Identity()
+    raise ValueError(f"norm {norm!r}: expected one of {NORMS}")
+
+
+class ResidualBlock(nn.Module):
+    """relu(x' + norm2(conv2(relu(norm1(conv1(x)))))), where x' is x, or its
+    1x1 strided projection `downsample` + `norm3` when the stride or the width
+    changes.  NCHW."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, norm: str = "instance"):
+        super().__init__()
+        self.conv1 = SameConv2d(in_planes, planes, 3, stride)
+        self.norm1 = make_norm(norm, planes)
+        self.conv2 = SameConv2d(planes, planes, 3)
+        self.norm2 = make_norm(norm, planes)
+        if stride != 1 or in_planes != planes:
+            self.downsample = SameConv2d(in_planes, planes, 1, stride)
+            self.norm3 = make_norm(norm, planes)
+        else:
+            self.downsample = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.norm3(self.downsample(x))
+        return torch.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    """RAFT-style residual encoder, [B, H, W, 3] -> [B, H/8, W/8, output_dim]."""
+
+    def __init__(self, output_dim: int = 256, norm: str = "instance"):
+        super().__init__()
+        self.conv1 = SameConv2d(3, 64, 7, 2)
+        # As the JAX package: the stem is normalised for 'instance' only.
+        self.norm1 = make_norm(norm, 64) if norm == "instance" else nn.Identity()
+        widths = ((64, 64, 1), (64, 96, 2), (96, 128, 2))
+        self.layer1, self.layer2, self.layer3 = (
+            nn.ModuleList([ResidualBlock(cin, cout, s, norm), ResidualBlock(cout, cout, 1, norm)])
+            for cin, cout, s in widths
+        )
+        self.conv2 = nn.Conv2d(128, output_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.norm1(self.conv1(x.permute(0, 3, 1, 2))))
+        for layer in (self.layer1, self.layer2, self.layer3):
+            for block in layer:
+                x = block(x)
+        return self.conv2(x).permute(0, 2, 3, 1)
+
+
+def make_encoder(kind: str, output_dim: int = 256, norm: str = "instance") -> nn.Module:
+    """'twins' (output_dim 256; `norm` unused, as in the JAX package) or
+    'cnn' (BasicEncoder with `norm`)."""
     if kind == "twins":
         if output_dim != 256:
             raise ValueError("twins_svt_large's 2-stage output is 256-dim")
         return TwinsEncoder()
-    raise NotImplementedError(
-        f"encoder {kind!r}: only 'twins' is ported; the cnn BasicEncoder is a "
-        "later slice of the port (see ROADMAP.md)."
-    )
+    if kind == "cnn":
+        return BasicEncoder(output_dim, norm)
+    raise ValueError(f"encoder {kind!r}: expected 'twins' or 'cnn'")

@@ -4,7 +4,8 @@ tpuflow/core/mofnet.py).
 Call with frames [B, T, H, W, 3] in [0, 1] (T >= 3); returns (flows_fwd,
 flows_bwd), each [B, T-2, H, W, 2], for the interior frames.
 
-- fnet / cnet: Twins-SVT to 1/8 resolution (core/encoders.py).
+- fnet / cnet: Twins-SVT or the cnn BasicEncoder (instance norm for fnet,
+  the 'batch' stand-in for cnet) to 1/8 resolution (core/encoders.py).
 - att: GMA q/k over the context, once per window (core/gma.py).
 - Two correlation objects per window, interior frame against its next and
   its previous frame (core/corr.py `make_corr`: a dense pyramid with kernel
@@ -18,11 +19,18 @@ flows_bwd), each [B, T-2, H, W, 2], for the interior frames.
 Like the JAX reference, refinement starts the motion hidden state at
 zeros (mofnet.py:482); the learned `init_hidden_state` is loaded but not
 read on this path.
+
+The stride-1 engine's pair-cached loop builds each frame pair's
+correlation once (`pair_corr_state`) and refines from per-frame context and
+per-pair correlations (`refine_pairs`): the lookup then runs per interior
+frame on its own pair and re-interleaves in (window, interior) order.
+BOFNet is MOFNet under another name, run at the config's T (3: one
+interior frame).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -42,7 +50,7 @@ class MOFEncoded(NamedTuple):
     net: torch.Tensor        # [B*N, h, w, 128] initial hidden state
     q: torch.Tensor          # [B*N, h, w, 128]
     k: torch.Tensor          # [B*N, h, w, 128]
-    corr_fwd: Any
+    corr_fwd: Any            # one object, or a tuple of N per-pair objects
     corr_bwd: Any
     batch: int               # B: windows in the batch
 
@@ -83,8 +91,8 @@ class MOFNet(nn.Module):
         # Largest feature grid 'auto' materializes (make_corr); parity runs
         # lower it to reach the large-grid formulation on a small frame.
         self.materialize_threshold = MATERIALIZE_THRESHOLD
-        self.fnet = make_encoder(encoder, feature_dim)
-        self.cnet = make_encoder(encoder, hidden_dim + context_dim)
+        self.fnet = make_encoder(encoder, feature_dim, "instance")
+        self.cnet = make_encoder(encoder, hidden_dim + context_dim, "batch")
         self.att = Attention(dim=context_dim, dim_head=context_dim)
         self.update_block = SKUpdateBlockMOF(corr_levels, corr_radius, hidden_dim)
 
@@ -129,6 +137,29 @@ class MOFNet(nn.Module):
         corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, **kw)
         return MOFEncoded(inp, net, q, k, corr_fwd, corr_bwd, b)
 
+    def pair_corr_state(self, center: torch.Tensor, target: torch.Tensor):
+        """The correlation object of one (center, target) frame pair, each
+        [M, h, w, Cf]: it depends on the pair only, so the stride-1 loop
+        builds it once for every window the pair appears in."""
+        return make_corr(
+            center.to(self.corr_dtype), target.to(self.corr_dtype), self.corr_levels,
+            impl=self.corr_impl, materialize_threshold=self.materialize_threshold,
+        )
+
+    def refine_pairs(self, prepared: Sequence, corr_fwd: Sequence, corr_bwd: Sequence):
+        """`refine` from per-frame prepared context (N interior frames of
+        (net, inp, q, k) as `prepare_context` returns them, each [M, h, w,
+        .]) and per-pair correlation objects (N per direction).  The context
+        stacks in (window, interior) order, as encode_from_features
+        reshapes it."""
+        n, m = len(prepared), prepared[0][0].shape[0]
+
+        def stack(i):
+            return torch.stack([p[i] for p in prepared], dim=1).reshape(m * n, *prepared[0][i].shape[1:])
+
+        enc = MOFEncoded(stack(1), stack(0), stack(2), stack(3), tuple(corr_fwd), tuple(corr_bwd), m)
+        return self.refine(enc)
+
     def encode(self, frames: torch.Tensor) -> MOFEncoded:
         """frames [B, T, H, W, 3] in [0, 1] -> the encoded window state (cnet
         runs on the interior frames only)."""
@@ -145,6 +176,13 @@ class MOFNet(nn.Module):
         return self.encode_from_features(feats, torch.cat([pad, ctx_i, pad], dim=1))
 
     def _lookup(self, corr, flow: torch.Tensor) -> torch.Tensor:
+        if isinstance(corr, tuple):
+            # Per-pair objects: interior j's queries go to pair j, and the
+            # features re-interleave to the (window, interior) batch order.
+            bn, h8, w8, _ = flow.shape
+            f = flow.reshape(bn // len(corr), len(corr), h8, w8, 2)
+            outs = [self._lookup(c, f[:, j].contiguous()) for j, c in enumerate(corr)]
+            return torch.stack(outs, dim=1).reshape(bn, h8, w8, -1)
         if isinstance(corr, DenseCorrPyramid):
             return corr.lookup(flow, self.corr_radius, impl=self.dense_lookup)
         return corr.lookup(flow, self.corr_radius)
@@ -172,3 +210,9 @@ class MOFNet(nn.Module):
 
     def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.refine(self.encode(frames))
+
+
+class BOFNet(MOFNet):
+    """VideoFlow's bi-directional variant (CLI `--vf-architecture bof`): the
+    MOFNet machinery, run at the config's T; at T = 3 one interior frame,
+    whose forward and backward flows come back (tpuflow/core/mofnet.py:508)."""

@@ -65,10 +65,17 @@
 // fixed steps are most of the time, and each tile stages again pixels its
 // neighbours stage too.  Tiles of large independent flows run the
 // per-query loop at L2 rate as before.
+//
+// Bounds guards (bounds.cuh, checked build): every load of f1, rr and cc,
+// every target row (its C channels, guarded once where its address is
+// formed; the loads of that row read only those channels), every pixel of
+// a box chunk, and every store, each against its tensor's extent.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "bounds.cuh"
 
 namespace {
 
@@ -78,6 +85,10 @@ constexpr int kMaxSide = 16;          // both index vectors fit one warp
 constexpr int kGroup = 4;             // patch positions reduced together
 constexpr int kMaxSharedBytes = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
+
+struct Extents {  // elements of f1, f2, rr, cc and out (bounds guards)
+  long long f1, f2, rr, cc, out;
+};
 
 // The tile kernel.
 constexpr int kTileH = 4;
@@ -216,18 +227,24 @@ template <typename T, int MODE, int G>
 __device__ __forceinline__ void query_patch(const T* __restrict__ f1, const T* __restrict__ f2,
                                             const int* __restrict__ rr, const int* __restrict__ cc,
                                             T* __restrict__ out, int64_t q, int nq, int lh, int lw,
-                                            int C, int side, float scale, float* f1s, int lane) {
+                                            int C, int side, float scale, float* f1s, int lane,
+                                            const Extents& ext) {
   constexpr int kPer16 = 16 / (int)sizeof(T);
   float f1r[MODE > 0 ? MODE * kPer16 : 1];
   const T* f1q = f1 + q * C;
   if constexpr (MODE > 0) {
 #pragma unroll
-    for (int k = 0; k < MODE; ++k)
+    for (int k = 0; k < MODE; ++k) {
+      TF_GUARD_SPAN(f1q + (k * 32 + lane) * kPer16 - f1, kPer16, ext.f1);
 #pragma unroll
       for (int t = 0; t < kPer16; ++t)
         f1r[k * kPer16 + t] = to_f32(f1q[(k * 32 + lane) * kPer16 + t]);
+    }
   } else {
-    for (int c = lane; c < C; c += 32) f1s[c] = to_f32(f1q[c]);
+    for (int c = lane; c < C; c += 32) {
+      TF_GUARD(f1q + c - f1, ext.f1);
+      f1s[c] = to_f32(f1q[c]);
+    }
   }
 
   // Lanes [0, side) hold the patch rows, [side, 2*side) the columns.  The
@@ -235,8 +252,10 @@ __device__ __forceinline__ void query_patch(const T* __restrict__ f1, const T* _
   // reading outside the level.
   int idx = 0;
   if (lane < side) {
+    TF_GUARD(q * side + lane, ext.rr);
     idx = min(max(rr[q * side + lane], 0), lh - 1);
   } else if (lane < 2 * side) {
+    TF_GUARD(q * side + lane - side, ext.cc);
     idx = min(max(cc[q * side + lane - side], 0), lw - 1);
   }
   __syncwarp();
@@ -255,6 +274,7 @@ __device__ __forceinline__ void query_patch(const T* __restrict__ f1, const T* _
       const int r = __shfl_sync(kFull, idx, i);
       const int c = __shfl_sync(kFull, idx, side + j);
       const T* row = plane + ((int64_t)r * lw + c) * C;
+      TF_GUARD_SPAN(row - f2, C, ext.f2);
       if constexpr (MODE > 0) {
         a[k] = lane_dot_reg<MODE>(row, f1r, lane);
       } else {
@@ -263,6 +283,7 @@ __device__ __forceinline__ void query_patch(const T* __restrict__ f1, const T* _
     }
     const float acc = fold<G>(a, lane);
     const int at = p0 + lane / kLanesPer;
+    TF_GUARD_IF(lane % kLanesPer == 0 && at < ss, outq + at - out, ext.out);
     if (lane % kLanesPer == 0 && at < ss) store(outq + at, __fmul_rn(acc, scale));
   }
   __syncwarp();
@@ -274,14 +295,14 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads) corr_patch_kernel(
     const T* __restrict__ f1, const T* __restrict__ f2, const int* __restrict__ rr,
     const int* __restrict__ cc, T* __restrict__ out, int64_t n_total, int nq, int lh,
-    int lw, int C, int side, float scale) {
+    int lw, int C, int side, float scale, const Extents ext) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int64_t q = (int64_t)blockIdx.x * kWarps + warp;
   // A whole warp leaves together and no block-wide barrier follows.
   if (q >= n_total) return;
   query_patch<T, MODE, kGroup>(f1, f2, rr, cc, out, q, nq, lh, lw, C, side, scale,
-                               smem + (size_t)warp * C, threadIdx.x & 31);
+                               smem + (size_t)warp * C, threadIdx.x & 31, ext);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -348,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
     const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ f2,
     const int* __restrict__ rr, const int* __restrict__ cc, __nv_bfloat16* __restrict__ out,
     int nq, int gw, int gh, int tiles_x, int tiles_img, int lh, int lw, int C, int side,
-    float scale) {
+    float scale, const Extents ext) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
   __nv_bfloat16* s_buf = reinterpret_cast<__nv_bfloat16*>(tile_smem);
   __nv_bfloat16* s_A = reinterpret_cast<__nv_bfloat16*>(tile_smem + kBufBytes);
@@ -379,6 +400,7 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
   const int cpr = C / 8;
   for (int m = warp; m < kTileQ; m += kWarps) {
     const int64_t q = query(m);
+    TF_GUARD_SPAN_IF(q >= 0 && lane < cpr, q * C + lane * 8, 8, ext.f1);
     if (lane < cpr)
       cp_async16(smem_u32(s_A + m * a_stride + lane * 8), q >= 0 ? f1 + q * C + lane * 8 : f1,
                  q >= 0 ? 16 : 0);
@@ -392,11 +414,13 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
     const int64_t q = query(m);
     if (q < 0) continue;
     if (lane < side) {
+      TF_GUARD(q * side + lane, ext.rr);
       const int r = min(max(rr[q * side + lane], 0), lh - 1);
       s_rr[m * kMaxSide + lane] = (short)r;
       rmin = min(rmin, r);
       rmax = max(rmax, r);
     } else if (lane < 2 * side) {
+      TF_GUARD(q * side + lane - side, ext.cc);
       const int c = min(max(cc[q * side + lane - side], 0), lw - 1);
       s_cc[m * kMaxSide + lane - side] = (short)c;
       cmin = min(cmin, c);
@@ -433,7 +457,7 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
       const int64_t q = query(m);
       if (q >= 0)
         query_patch<__nv_bfloat16, MODE, kGroupTile>(f1, f2, rr, cc, out, q, nq, lh, lw, C, side,
-                                                     scale, f1s, lane);
+                                                     scale, f1s, lane, ext);
     }
     cp_async_wait<0>();
     return;
@@ -470,6 +494,7 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
       const int p = j * kChunkP + pl;
       const int br = p / bw;
       const __nv_bfloat16* src = plane + ((int64_t)(r0 + br) * lw + c0 + (p - br * bw)) * C;
+      TF_GUARD_SPAN_IF(p < npix && lane < cpr, src + lane * 8 - f2, 8, ext.f2);
       if (lane < cpr)
         cp_async16(smem_u32(dst + pl * a_stride + lane * 8), p < npix ? src + lane * 8 : plane,
                    p < npix ? 16 : 0);
@@ -550,6 +575,7 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
     const unsigned short* Sm = S + m * sstride;
     unsigned short* outq = outs + q * ss;
     for (int p = lane, i = lane / side, j = lane - i * side; p < ss; p += 32) {
+      TF_GUARD(outq + p - outs, ext.out);
       outq[p] = Sm[orow[i] + ocol[j]];
       j += 32;                  // the next position: 32 further in row-major order
       while (j >= side) {
@@ -563,21 +589,21 @@ __global__ void __launch_bounds__(kThreads, 2) corr_patch_tile_kernel(
 template <typename T, int MODE>
 int launch_mode(const void* f1, const void* f2, const int* rr, const int* cc, void* out,
                 long long n_total, int nq, int lh, int lw, int C, int side, float scale,
-                cudaStream_t s) {
+                const Extents& ext, cudaStream_t s) {
   const long long blocks = (n_total + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t shared = MODE > 0 ? 0 : (size_t)kWarps * C * sizeof(float);
   if (shared > (size_t)kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   corr_patch_kernel<T, MODE><<<(unsigned)blocks, kThreads, shared, s>>>(
       static_cast<const T*>(f1), static_cast<const T*>(f2), rr, cc, static_cast<T*>(out),
-      n_total, nq, lh, lw, C, side, scale);
+      n_total, nq, lh, lw, C, side, scale, ext);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
 int launch_tile(const void* f1, const void* f2, const int* rr, const int* cc, void* out,
                 long long n_total, int nq, int gw, int lh, int lw, int C, int side, float scale,
-                cudaStream_t s) {
+                const Extents& ext, cudaStream_t s) {
   const int gh = nq / gw;
   const long long tiles_x = (gw + kTileW - 1) / kTileW;
   const long long tiles_img = tiles_x * ((gh + kTileH - 1) / kTileH);
@@ -604,14 +630,14 @@ int launch_tile(const void* f1, const void* f2, const int* rr, const int* cc, vo
   corr_patch_tile_kernel<MODE><<<(unsigned)blocks, kThreads, shared, s>>>(
       static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2), rr, cc,
       static_cast<__nv_bfloat16*>(out), nq, gw, gh, (int)tiles_x, (int)tiles_img, lh, lw, C,
-      side, scale);
+      side, scale, ext);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* f1, const void* f2, const int* rr, const int* cc, void* out,
            long long n_total, int nq, int gw, int lh, int lw, int C, int side, float scale,
-           cudaStream_t s) {
+           const Extents& ext, cudaStream_t s) {
   const int per16 = 16 / (int)sizeof(T);
   const bool vec = C % per16 == 0 && reinterpret_cast<uintptr_t>(f2) % 16 == 0;
   const int rounds = vec && C % (32 * per16) == 0 ? C / (32 * per16) : 0;
@@ -621,16 +647,16 @@ int launch(const void* f1, const void* f2, const int* rr, const int* cc, void* o
   if (sizeof(T) == 2 && vec && C % 16 == 0 && C <= kMaxTensorC &&
       reinterpret_cast<uintptr_t>(f1) % 16 == 0 && lh <= 32767 && lw <= 32767) {
     if (rounds == 1)
-      return launch_tile<1>(f1, f2, rr, cc, out, n_total, nq, gw, lh, lw, C, side, scale, s);
-    return launch_tile<0>(f1, f2, rr, cc, out, n_total, nq, gw, lh, lw, C, side, scale, s);
+      return launch_tile<1>(f1, f2, rr, cc, out, n_total, nq, gw, lh, lw, C, side, scale, ext, s);
+    return launch_tile<0>(f1, f2, rr, cc, out, n_total, nq, gw, lh, lw, C, side, scale, ext, s);
   }
   if (rounds == 1)
-    return launch_mode<T, 1>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, s);
+    return launch_mode<T, 1>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, ext, s);
   if (rounds == 2)
-    return launch_mode<T, 2>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, s);
+    return launch_mode<T, 2>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, ext, s);
   if (vec)
-    return launch_mode<T, 0>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, s);
-  return launch_mode<T, -1>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, s);
+    return launch_mode<T, 0>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, ext, s);
+  return launch_mode<T, -1>(f1, f2, rr, cc, out, n_total, nq, lh, lw, C, side, scale, ext, s);
 }
 
 }  // namespace
@@ -638,17 +664,20 @@ int launch(const void* f1, const void* f2, const int* rr, const int* cc, void* o
 // dtype: 0 = bf16, 1 = f32 (f1, f2 and out share it).  f1 [n_total, C] with
 // n_total = B * nq, each image's nq queries a grid [nq / grid_w, grid_w];
 // f2 [B, lh, lw, C]; rr, cc [n_total, side] int32; out [n_total, side, side].
-// scale multiplies the f32 sum before the one rounding to dtype.  Returns
-// the launch's cudaError_t.
+// scale multiplies the f32 sum before the one rounding to dtype.  extents:
+// host array of the elements of f1, f2, rr, cc and out, read by the checked
+// build only.  Returns the launch's cudaError_t.
 extern "C" int tf_corr_patch(int dtype, const void* f1, const void* f2, const int* rr,
                              const int* cc, void* out, long long n_total, int nq, int grid_w,
-                             int lh, int lw, int C, int side, float scale, void* stream) {
+                             int lh, int lw, int C, int side, float scale,
+                             const long long* extents, void* stream) {
   if (n_total < 1 || nq < 1 || n_total % nq != 0 || grid_w < 1 || nq % grid_w != 0 || lh < 1 ||
       lw < 1 || C < 1 || side < 1 || side > kMaxSide || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Extents ext{extents[0], extents[1], extents[2], extents[3], extents[4]};
   if (dtype == 0)
     return launch<__nv_bfloat16>(f1, f2, rr, cc, out, n_total, nq, grid_w, lh, lw, C, side,
-                                 scale, s);
-  return launch<float>(f1, f2, rr, cc, out, n_total, nq, grid_w, lh, lw, C, side, scale, s);
+                                 scale, ext, s);
+  return launch<float>(f1, f2, rr, cc, out, n_total, nq, grid_w, lh, lw, C, side, scale, ext, s);
 }

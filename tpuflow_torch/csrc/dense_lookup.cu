@@ -39,11 +39,16 @@
 //   path) are written by consecutive lanes to consecutive addresses.
 // One patch row must fit in a warp and the staged patches of a block in
 // shared memory, so r <= 14 (the wrapper raises above that).
+// In the checked build (bounds.cuh) every load of the flow and of a level
+// and every store of the output is guarded against that tensor's extent,
+// each level against its own.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "bounds.cuh"
 
 namespace {
 
@@ -55,6 +60,7 @@ struct Levels {
   const void* vol[kMaxLevels];
   int lh[kMaxLevels];
   int lw[kMaxLevels];
+  long long extent[kMaxLevels];  // elements of each level's tensor (bounds guards)
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -68,7 +74,7 @@ template <typename T>
 __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
     const __grid_constant__ Levels levels, const float* __restrict__ flow,
     float* __restrict__ out, int n_query, int h, int w, int radius, int n_levels,
-    int level_offset) {
+    int level_offset, long long flow_extent, long long out_extent) {
   extern __shared__ float staged[];  // per warp: n_levels patches, [column][row]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -84,6 +90,7 @@ __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
   const int pix = q % (h * w);
   const int y = pix / w;
   const int x = pix - y * w;
+  TF_GUARD_SPAN(2 * (int64_t)q, 2, flow_extent);
   const float bx = __fadd_rn((float)x, flow[2 * (int64_t)q]);
   const float by = __fadd_rn((float)y, flow[2 * (int64_t)q + 1]);
 
@@ -111,7 +118,11 @@ __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
         const int gr = y0 + row;
         const bool inside = gr >= 0 && gr < lh && gc >= 0 && gc < lw;
         v[u] = 0.0f;
-        if (loader && row < side) v[u] = inside ? to_f32(__ldg(pl + gr * lw + gc)) : 0.0f;
+        if (loader && row < side) {
+          TF_GUARD_IF(inside, pl + gr * lw + gc - static_cast<const T*>(levels.vol[l]),
+                      levels.extent[l]);
+          v[u] = inside ? to_f32(__ldg(pl + gr * lw + gc)) : 0.0f;
+        }
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -136,6 +147,7 @@ __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
       const float* p = tl + j * side + i;
       const float t0 = lerp_rn(p[0], p[side], wx);      // row i, columns j -> j+1
       const float t1 = lerp_rn(p[1], p[side + 1], wx);  // row i+1
+      TF_GUARD(o + l * ncs + c - out, out_extent);
       o[l * ncs + c] = lerp_rn(t0, t1, wy);
     }
   }
@@ -143,7 +155,8 @@ __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
 
 template <typename T>
 int launch(const Levels& levels, const float* flow, float* out, int n_query, int h, int w,
-           int radius, int n_levels, int level_offset, cudaStream_t s) {
+           int radius, int n_levels, int level_offset, long long flow_extent,
+           long long out_extent, cudaStream_t s) {
   const int side = 2 * radius + 2;
   const int smem = kWarps * n_levels * side * side * (int)sizeof(float);
   if (smem > 48 * 1024) {
@@ -152,20 +165,23 @@ int launch(const Levels& levels, const float* flow, float* out, int n_query, int
     if (rc != cudaSuccess) return (int)rc;
   }
   const unsigned blocks = (unsigned)((n_query + kWarps - 1) / kWarps);
-  dense_lookup_kernel<T><<<blocks, 32 * kWarps, smem, s>>>(levels, flow, out, n_query, h, w,
-                                                            radius, n_levels, level_offset);
+  dense_lookup_kernel<T><<<blocks, 32 * kWarps, smem, s>>>(
+      levels, flow, out, n_query, h, w, radius, n_levels, level_offset, flow_extent, out_extent);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bf16 volumes, 1 = f32 volumes.  vols/lh/lw: host arrays of
-// n_levels entries.  flow: [n_query, 2] f32; out: [n_query, n_levels *
-// (2r+1)^2] f32.  Stored level l is sampled at scale 2^(l + level_offset).
+// dtype: 0 = bf16 volumes, 1 = f32 volumes.  vols/lh/lw/extents: host
+// arrays of n_levels entries, extents the elements of each level's tensor.
+// flow: [n_query, 2] f32 of flow_extent elements; out: [n_query, n_levels *
+// (2r+1)^2] f32 of out_extent.  Stored level l is sampled at scale
+// 2^(l + level_offset).  The extents are read by the checked build only.
 // Returns the launch's cudaError_t.
 extern "C" int tf_dense_lookup(int dtype, const void* const* vols, const int* lh,
-                               const int* lw, int n_levels, const float* flow,
-                               float* out, long long n_query, int h, int w,
+                               const int* lw, const long long* extents, int n_levels,
+                               const float* flow, long long flow_extent, float* out,
+                               long long out_extent, long long n_query, int h, int w,
                                int radius, int level_offset, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_query < 1 || n_query > INT_MAX || h < 1 ||
       w < 1 || (long long)h * w > INT_MAX || radius < 0 || radius > kMaxRadius ||
@@ -176,10 +192,12 @@ extern "C" int tf_dense_lookup(int dtype, const void* const* vols, const int* lh
     levels.vol[l] = vols[l];
     levels.lh[l] = lh[l];
     levels.lw[l] = lw[l];
+    levels.extent[l] = extents[l];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<__nv_bfloat16>(levels, flow, out, (int)n_query, h, w, radius, n_levels,
-                                 level_offset, s);
-  return launch<float>(levels, flow, out, (int)n_query, h, w, radius, n_levels, level_offset, s);
+                                 level_offset, flow_extent, out_extent, s);
+  return launch<float>(levels, flow, out, (int)n_query, h, w, radius, n_levels, level_offset,
+                       flow_extent, out_extent, s);
 }

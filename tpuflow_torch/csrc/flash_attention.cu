@@ -42,12 +42,19 @@
 // The f32 entry is a plain FMA kernel (one warp per query row, exact f32
 // dot products and softmax), used when the model runs in f32 — the
 // CPU-vs-card parity run — and never on the bf16 main path.
+//
+// Bounds guards (bounds.cuh, checked build): the bf16 kernel reads Q, K and
+// V only through TMA, whose tensor maps bound every box to [B, S, 128] and
+// zero-fill past it, so only its O stores are guarded; the f32 kernel
+// guards its loads of q, k, v and its stores.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "bounds.cuh"
 
 namespace {
 
@@ -182,7 +189,8 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+    long long o_extent) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1 KB
   const uint32_t sq = base, sk = base + kKOff, sv = base + kVOff;
@@ -345,6 +353,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
 #pragma unroll
   for (int n = 0; n < kD / 8; ++n) {
     const int c = n * 8 + tg * 2;
+    TF_GUARD_IF(r0 < S, ob + (size_t)r0 * kD + c + 1 - o, o_extent);
+    TF_GUARD_IF(r1 < S, ob + (size_t)r1 * kD + c + 1 - o, o_extent);
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * kD + c) =
           pack_f32(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
@@ -356,18 +366,26 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
 
 constexpr int kF32Warps = 4;
 
+struct Extents {  // elements of q, k, v and o (bounds guards)
+  long long q, k, v, o;
+};
+
 // One warp per query row; lane i holds head dims 4i..4i+3.
 __global__ void __launch_bounds__(32 * kF32Warps) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int S, long long rows) {
+    const float* __restrict__ v, float* __restrict__ o, int S, long long rows,
+    const Extents extent) {
   const long long row = (long long)blockIdx.x * kF32Warps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const size_t base = (size_t)(row / S) * S * kD;
+  TF_GUARD_SPAN((size_t)row * kD + 4 * lane, 4, extent.q);
   const float4 qv = reinterpret_cast<const float4*>(q + (size_t)row * kD)[lane];
   float m = -CUDART_INF_F, l = 0.0f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int j = 0; j < S; ++j) {
+    TF_GUARD_SPAN(base + (size_t)j * kD + 4 * lane, 4, extent.k);
+    TF_GUARD_SPAN(base + (size_t)j * kD + 4 * lane, 4, extent.v);
     const float4 kv = reinterpret_cast<const float4*>(k + base + (size_t)j * kD)[lane];
     float s = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
 #pragma unroll
@@ -384,6 +402,7 @@ __global__ void __launch_bounds__(32 * kF32Warps) flash_fwd_f32_kernel(
     m = mn;
   }
   const float inv = 1.0f / l;
+  TF_GUARD_SPAN((size_t)row * kD + 4 * lane, 4, extent.o);
   reinterpret_cast<float4*>(o + (size_t)row * kD)[lane] =
       make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
 }
@@ -430,10 +449,11 @@ static bool qkv_map(CUtensorMap* map, const void* ptr, int B, int S) {
 }
 
 // q, k, v, o: [B, S, 128] contiguous, 16-byte aligned.  dtype: 0 = bf16,
-// 1 = f32.  Returns the launch's cudaError_t.
+// 1 = f32.  extents: host array of the elements of q, k, v and o, read by
+// the checked build only.  Returns the launch's cudaError_t.
 extern "C" int tf_flash_attention_fwd(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
-                                      void* stream) {
+                                      const long long* extents, void* stream) {
   if (B < 1 || S < 1 || B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -449,14 +469,15 @@ extern "C" int tf_flash_attention_fwd(int dtype, const void* q, const void* k,
       configured = true;
     }
     const dim3 grid((unsigned)((S + kBlockM - 1) / kBlockM), (unsigned)B);
-    flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(tq, tk, tv,
-                                                            static_cast<__nv_bfloat16*>(o), S);
+    flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, extents[3]);
   } else {
     const long long rows = (long long)B * S;
     const unsigned blocks = (unsigned)((rows + kF32Warps - 1) / kF32Warps);
     flash_fwd_f32_kernel<<<blocks, 32 * kF32Warps, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, rows);
+        static_cast<const float*>(v), static_cast<float*>(o), S, rows,
+        Extents{extents[0], extents[1], extents[2], extents[3]});
   }
   return (int)cudaGetLastError();
 }

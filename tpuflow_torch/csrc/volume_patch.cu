@@ -63,9 +63,21 @@
 // Offsets are 64-bit: a level-0 band volume at the tile (6 x 16 200 x 16 200
 // entries, 1.57e9) is under 2^31 entries, but its byte offsets are not, and
 // an untiled 'band' window (3 x 32 400^2 entries) passes 2^31 entries.
+//
+// Bounds guards (bounds.cuh, checked build), each level against its own
+// tensors' extents, the outputs against each level's own span of the shared
+// output buffer: every load of rr and cc; each window row's span of entries
+// where its read plan is made, and each word load against that span; each
+// entry read entry by entry; every store.  They are of the deferred form
+// (a miss is noted, the thread traps at the kernel's end): with immediate
+// traps among the word loop's shuffles, the compiler built a kernel that
+// gave wrong entries on one ragged draw (bf16, side 2, a 3x5 plane), while
+// each subset of the guards built right.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bounds.cuh"
 
 namespace {
 
@@ -87,6 +99,11 @@ struct Levels {
   int sr[kMaxLevels];
   int lh[kMaxLevels];
   int lw[kMaxLevels];
+  // Elements of each level's volume, rr, cc and output (bounds guards).
+  long long vol_extent[kMaxLevels];
+  long long rr_extent[kMaxLevels];
+  long long cc_extent[kMaxLevels];
+  long long out_extent[kMaxLevels];
 };
 
 // U: uint16_t (bf16 entries, read as 4-byte words holding two) or uint32_t.
@@ -100,6 +117,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
   const int lane = threadIdx.x & 31;
   const int n0 = (blockIdx.x * kWarps + warp) * run;
   if (n0 >= n_total) return;  // the whole warp
+  TF_MISS_DECL;
   const int nqr = min(run, n_total - n0);
   const int nrows = nqr * side;
   const int ss = side * side;
@@ -128,6 +146,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
   for (int k = 0; k < kMaxRows / 32; ++k) {
     const int t = lane + 32 * k;
     if (t < nrows) {
+      TF_NOTE_SPAN(rrl + t - lv.rr[l], 1, lv.rr_extent[l]);
+      TF_NOTE_SPAN(ccl + t - lv.cc[l], 1, lv.cc_extent[l]);
       rv[k] = __ldg(rrl + t);
       cv[k] = __ldg(ccl + t);
     }
@@ -187,6 +207,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
       const uintptr_t first = reinterpret_cast<uintptr_t>(row + s_cmin[q]);
       const unsigned off = sizeof(U) == 2 ? (unsigned)(first >> 1) & 1u : 0u;
       const unsigned nw = sizeof(U) == 2 ? (off + span + 1) >> 1 : span;
+      TF_NOTE_SPAN_IF(span != 0, row + s_cmin[q] - vol, span, lv.vol_extent[l]);
       scattered = span == 0;
       s_addr[t] = scattered ? reinterpret_cast<uintptr_t>(row) : first & ~(uintptr_t)3;
       s_plan[t] = scattered ? 0u : off | (unsigned)s_lead[q] << 1 | (unsigned)span << 8 | nw << 16;
@@ -218,8 +239,16 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
       const int t = t0 + u * per_pass + t_lane;
       plan[u] = t < nrows ? s_plan[t] : 0u;
       v[u] = 0;
-      if ((int)(plan[u] >> 16) > g)
-        v[u] = __ldg(reinterpret_cast<const uint32_t*>(s_addr[t]) + g);
+      if ((int)(plan[u] >> 16) > g) {
+        const uint32_t* word = reinterpret_cast<const uint32_t*>(s_addr[t]) + g;
+        // The word holds entry positions [e, e + 4 / sizeof(U)) of the row's
+        // plan, of which the span takes [off, off + span).
+        TF_NOTE((word - reinterpret_cast<const uint32_t*>(s_addr[t])) * (4 / (int)sizeof(U)) <
+                    (int)(plan[u] & 1) + (int)((plan[u] >> 8) & 255) &&
+                (word - reinterpret_cast<const uint32_t*>(s_addr[t]) + 1) * (4 / (int)sizeof(U)) >
+                    (int)(plan[u] & 1));
+        v[u] = __ldg(word);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -255,6 +284,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
         const int t = s_scattered[k];
         const int c = s_cc[__umulhi((unsigned)t, side_magic) * side + j];
         dst[u] = t * side + j;
+        TF_NOTE_SPAN(reinterpret_cast<const U*>(s_addr[t]) + min(max(c, 0), lw - 1) - vol, 1,
+                     lv.vol_extent[l]);
         val[u] = __ldg(reinterpret_cast<const U*>(s_addr[t]) + min(max(c, 0), lw - 1));
       }
     }
@@ -268,9 +299,18 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
   const int nwords = nrows * words;
   uint32_t* out = static_cast<uint32_t*>(lv.out[l]) + (int64_t)n0 * ss * (int)sizeof(U) / 4;
   const int n16 = nwords >> 2;
-  for (int k = lane; k < n16; k += 32)
+  for (int k = lane; k < n16; k += 32) {
+    TF_NOTE_SPAN(reinterpret_cast<const U*>(reinterpret_cast<uint4*>(out) + k) -
+                      static_cast<const U*>(lv.out[l]),
+                 16 / (int)sizeof(U), lv.out_extent[l]);
     reinterpret_cast<uint4*>(out)[k] = reinterpret_cast<const uint4*>(stage)[k];
-  for (int k = 4 * n16 + lane; k < nwords; k += 32) out[k] = stage[k];
+  }
+  for (int k = 4 * n16 + lane; k < nwords; k += 32) {
+    TF_NOTE_SPAN(reinterpret_cast<const U*>(out + k) - static_cast<const U*>(lv.out[l]),
+                 4 / (int)sizeof(U), lv.out_extent[l]);
+    out[k] = stage[k];
+  }
+  TF_TRAP_IF_MISSED();
 }
 
 }  // namespace
@@ -279,12 +319,15 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) volume_patch_kernel(
 // Host arrays of n_levels entries: vols, rrs, ccs (each [n_total, side]
 // int32 with n_total = B * nq), outs (each [n_total, side, side], 16-byte
 // aligned), lh, lw and the strides sb, sq, sr in elements (sq and sr below
-// 2^31).  side is even, 2..30.  Returns the launch's cudaError_t.
+// 2^31), and the elements of each level's tensors, extents[4 * l + i] for
+// i = volume, rr, cc, output (read by the checked build only).  side is
+// even, 2..30.  Returns the launch's cudaError_t.
 extern "C" int tf_volume_patch(int elem_bytes, int n_levels, const void* const* vols,
                                const int* const* rrs, const int* const* ccs, void* const* outs,
                                const int* lh, const int* lw, const long long* sb,
-                               const long long* sq, const long long* sr, long long n_total,
-                               int nq, int side, void* stream) {
+                               const long long* sq, const long long* sr,
+                               const long long* extents, long long n_total, int nq, int side,
+                               void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_total < 1 || nq < 1 || n_total % nq != 0 ||
       side < 2 || side > kMaxSide || side % 2 != 0 || n_total * side > 0x7fffffffLL ||
       (elem_bytes != 2 && elem_bytes != 4))
@@ -303,6 +346,10 @@ extern "C" int tf_volume_patch(int elem_bytes, int n_levels, const void* const* 
     lv.sr[l] = (int)sr[l];
     lv.lh[l] = lh[l];
     lv.lw[l] = lw[l];
+    lv.vol_extent[l] = extents[4 * l];
+    lv.rr_extent[l] = extents[4 * l + 1];
+    lv.cc_extent[l] = extents[4 * l + 2];
+    lv.out_extent[l] = extents[4 * l + 3];
   }
   // Queries per run: as many as the stage holds, at most 32 and kMaxRows /
   // side, at least 2, even in bf16 so that every run's span is a multiple

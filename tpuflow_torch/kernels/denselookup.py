@@ -85,9 +85,10 @@ def _lib():
     fn = library("dense_lookup").tf_dense_lookup
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -135,12 +136,14 @@ def dense_lookup(
     ptrs = (ctypes.c_void_p * nl)(*[v.data_ptr() for v in volumes])
     lhs = (ctypes.c_int * nl)(*[v.shape[1] for v in volumes])
     lws = (ctypes.c_int * nl)(*[v.shape[2] for v in volumes])
+    extents = (ctypes.c_longlong * nl)(*[v.numel() for v in volumes])
     fn = _lib()
     with torch.cuda.device(flow.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            _DTYPE_CODES[volumes[0].dtype], ptrs, lhs, lws, nl,
-            flow.data_ptr(), out.data_ptr(), b * h * w, h, w, radius, level_offset, stream,
+            _DTYPE_CODES[volumes[0].dtype], ptrs, lhs, lws, extents, nl,
+            flow.data_ptr(), flow.numel(), out.data_ptr(), out.numel(),
+            b * h * w, h, w, radius, level_offset, stream,
         )
     check_launch(rc, "dense_lookup")
     dense_lookup.launches += 1
@@ -169,7 +172,8 @@ def _volume_patch_lib():
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -240,6 +244,8 @@ def launch_volume_patch(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Ten
             arr(ctypes.c_void_p, [o.data_ptr() for o in outs]),
             arr(ctypes.c_int, [lh for lh, _ in dims]), arr(ctypes.c_int, [lw for _, lw in dims]),
             *(arr(ctypes.c_longlong, [st[k] for st in strides]) for k in range(3)),
+            (ctypes.c_longlong * (4 * nl))(*(t.numel() for group in zip(volumes, rrs, ccs, outs)
+                                             for t in group)),
             b * nq, nq, side, stream,
         )
     check_launch(rc, kernel)

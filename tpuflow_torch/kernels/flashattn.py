@@ -42,7 +42,7 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -71,12 +71,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
     out = torch.empty_like(v)
+    extents = (ctypes.c_longlong * 4)(*(t.numel() for t in (q, k, v, out)))
     fn = _lib()
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             _DTYPE_CODES[v.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, stream,
+            out.data_ptr(), b, s, extents, stream,
         )
     check_launch(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1

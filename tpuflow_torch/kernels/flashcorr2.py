@@ -106,6 +106,7 @@ def _lib():
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -144,12 +145,14 @@ def corr_patch(wrapper, plain, f1, f2l, rr, cc, grid_w: Optional[int] = None) ->
         raise ValueError(f"{name}: C = {c} exceeds the kernel's {MAX_CHANNELS} channels")
     _, lh, lw, _ = f2l.shape
     out = torch.empty((b, nq, side, side), dtype=f1.dtype, device=f1.device)
+    extents = (ctypes.c_longlong * 5)(*(t.numel() for t in (f1, f2l, rr, cc, out)))
     fn = _lib()
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             _DTYPE_CODES[f1.dtype], f1.data_ptr(), f2l.data_ptr(), rr.data_ptr(), cc.data_ptr(),
-            out.data_ptr(), b * nq, nq, grid_w, lh, lw, c, side, 1.0 / math.sqrt(c), stream,
+            out.data_ptr(), b * nq, nq, grid_w, lh, lw, c, side, 1.0 / math.sqrt(c), extents,
+            stream,
         )
     check_launch(rc, name)
     wrapper.launches += 1

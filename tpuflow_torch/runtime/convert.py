@@ -6,8 +6,9 @@ loads directly once `module.` prefixes and the tensors inference never
 reads (VIDEOFLOW_IGNORE) are dropped.  A flax tree is mapped by inverting
 the reference's name rewrite (tpuflow/runtime/convert.py
 _rewrite_videoflow_key) with the table below, and its layouts converted:
-conv kernels HWIO -> OIHW, Dense [in, out] -> [out, in], LayerNorm
-`scale` -> `weight`.
+conv kernels HWIO -> OIHW, Dense [in, out] -> [out, in], LayerNorm and
+GroupNorm `scale` -> `weight`.  Twins encoders gain the upstream `.svt.`
+scope; the cnn encoder's `layer{i}_{j}` become `layer{i}.{j}`.
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ VIDEOFLOW_IGNORE = (
 )
 
 # flax module path (dotted) -> upstream torch module path: the inverse of
-# the reference's _rewrite_videoflow_key (Twins and SK update block).
+# the reference's _rewrite_videoflow_key (Twins, cnn encoder, SK update block).
 _FLAX_TO_TORCH = (
     (r"^iteration\.update_block\.", "update_block."),
-    (r"^(fnet|cnet)\.", r"\1.svt."),
+    (r"^(fnet|cnet)\.(?=(patch_embeds|pos_block|blocks)_)", r"\1.svt."),
+    (r"\.layer(\d+)_(\d+)\.", r".layer\1.\2."),
     (r"\.patch_embeds_(\d+)\.", r".patch_embeds.\1."),
     (r"\.pos_block_(\d+)\.proj_0\.", r".pos_block.\1.proj.0."),
     (r"\.blocks_(\d+)_(\d+)\.", r".blocks.\1.\2."),
