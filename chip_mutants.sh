@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and thirteen deliberately broken, and prints for each copy whether each
+# and fourteen deliberately broken, and prints for each copy whether each
 # phase passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
@@ -31,7 +31,9 @@
 #              K1's tolerance check fails too)
 #   tilebatch  tpuflow_torch/runtime/engine.py: compute_flow_tiled drops the
 #              last chunk of tile_batch tiles -> the 4K phase fails
-# The unbroken copy must pass all nine phases.  Needs one CUDA card and
+#   readermask tpuflow_torch/core/memflownet.py: the memory reader scores
+#              invalid slots like valid ones -> the MemFlow phase fails
+# The unbroken copy must pass all ten phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh        # from the repository root
@@ -68,6 +70,7 @@ runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "untiled": lambda: cs.phase_untiled(engine, kernels),
         "checked": lambda: cs.phase_checked_wait(cs.phase_checked_start()),
         "uhd": lambda: cs.phase_uhd(engine, kernels),
+        "memflow": lambda: cs.phase_memflow(cs.kernel_counters()),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
         "k3": lambda: cs.check_corr_patch(dev, *k3),
         "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band")}
@@ -84,7 +87,7 @@ for name in phases:
 
 status=0
 for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
-            k1stride tilebatch; do
+            k1stride tilebatch readermask; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
     cp -r "$root/chip_smoke.py" "$root/tpuflow_torch" "$work/copy/"
@@ -92,7 +95,7 @@ for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -119,11 +122,13 @@ for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule
                    sed -i 's/static_cast<const T\*>(levels.vol\[l\]) + (int64_t)q \* ((int64_t)lh \* lw);/static_cast<const T*>(levels.vol[l]) + (int64_t)q * ((int64_t)levels.lh[l > 0 ? l - 1 : 0] * levels.lw[l > 0 ? l - 1 : 0]);/' $edited ;;
         tilebatch) phases=uhd; edited=tpuflow_torch/runtime/engine.py
                    sed -i 's/for c0 in range(0, len(idxs), tile_batch):/for c0 in range(0, len(idxs) - tile_batch + 1, tile_batch):/' $edited ;;
+        readermask) phases=memflow; edited=tpuflow_torch/core/memflownet.py
+                   sed -i '/sim.masked_fill_(invalid\[i\], -1e9)/d' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

@@ -16,10 +16,11 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    the card and, where one exists, one PyTorch call's time.  K1 and K2 at
    the tiled path (two 960x1080 tiles, /8 grid 135x120, 6 batch rows per
    window), K1 also as the 'flash' sidecar there and K2 also at the untiled
-   window's [3, 32400, 128]; the correlation-patch kernel (K3 and K5) at
-   the untiled 1920x1080 window (3 x 135x240 queries, C = 256) on
-   independent, smooth, small and mixed flow fields, with the share of
-   query tiles that take its tensor-core path, K5 also at level 0 of the
+   window's [3, 32400, 128] and a MemFlow frame's [1, 32400, 128]; the
+   correlation-patch kernel (K3 and K5) at the untiled 1920x1080 window (3 x
+   135x240 queries, C = 256) on independent, smooth, small and mixed flow
+   fields, with the share of query tiles that take its tensor-core path, K3
+   also at a MemFlow frame's 1 x 135x240 queries, K5 also at level 0 of the
    tile shape, both against an f32 reference; the
    volume-patch kernel (K4 flat layout, K6 band layout) bit for bit through
    its one-level and its all-levels entry, at radius 0, 1, 4 and 14 with
@@ -56,10 +57,17 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    encoder (encoder 'cnn'): tiled stride-1 on four 1920x1080 frames, its
    encoders' time per frame against Twins's and their profile, then every
    entry point on a small clip.
-12. parity: one small clip through the same engine weights in f32 with TF32
-   off, on the CPU (plain versions) and on the card (kernels): tiled, and
-   one untiled window above the materialization threshold (FlashCorr2).
-13. checked build, in a child process started before phase 2 (this script
+12. MemFlow (model 'memflow', rope on, a memory of 8 slots): stream_flows on
+   ten 1920x1080 frames (K3 48 and K2 12 launches per frame, K1 none; every
+   slot valid after the clip), one frame's encoders, memory reader and
+   refinement timed and the refinement profiled, the memory reader against
+   a plain readout of the valid slots, every entry point against
+   compute_flow bit for bit, and a 640x480 stream (K1 12 per frame).
+13. parity: one small clip through the same engine weights in f32 with TF32
+   off, on the CPU (plain versions) and on the card (kernels): tiled, one
+   untiled window above the materialization threshold (FlashCorr2), and
+   MemFlow's stream_flows with both of its gates lowered (K3 and K2).
+14. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
    with its bounds guards (kernels/_build.py, checked=True), each of the six
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
@@ -346,21 +354,22 @@ def check_dense_lookup(dev) -> dict:
 
 
 def check_flash_attention(dev) -> dict:
-    """K2 on ragged shapes, then at both shapes its paths give it, q, k, v
+    """K2 on ragged shapes, then at the shapes its paths give it, q, k, v
     bf16 with q pre-scaled by 128^-0.5 as Attention emits it: the tiled
     window's [6, 16200, 128] (127 query tiles and 127 key tiles of 128, the
-    last of 72 rows) and the untiled window's [3, 32400, 128] (254 of each,
-    the last of 16)."""
+    last of 72 rows), the untiled window's [3, 32400, 128] (254 of each,
+    the last of 16) and a MemFlow 1080p frame's [1, 32400, 128]."""
     qkv = qkv_draws(dev)
     check_flash_attention_ragged(qkv)
 
     tiled = flash_attention_at(qkv, TILE_QUERIES[0], TILE_QUERIES[1] * TILE_QUERIES[2])
     untiled = flash_attention_at(qkv, UNTILED_QUERIES[0], UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
+    memflow = flash_attention_at(qkv, 1, UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "tpuflow_torch/csrc/flash_attention.cu",
         "replaces": "tpuflow/core/gma.py:35",
-        **tiled, "at_untiled_window": untiled,
+        **tiled, "at_untiled_window": untiled, "at_memflow_frame": memflow,
     }
 
 
@@ -580,7 +589,7 @@ def check_corr_patch_ragged(g, dev, wrapper, plain) -> None:
                                  f"edges: {shares} {edges}")
 
 
-def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
+def check_corr_patch(dev, wrapper, plain, replaces: str, also=None, memflow: bool = False) -> dict:
     """The correlation-patch kernel through one of its two wrappers (K3
     `flash2_patch_level`, K5 `flash_patch_level`), with the query grid's
     width as the path passes it: ragged shapes (check_corr_patch_ragged),
@@ -603,7 +612,9 @@ def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
     summation order only: 1e-5 of scale.
 
     `also` = ((B, h, w), levels): one more bf16 shape the wrapper's path
-    gives it, held to the same limits."""
+    gives it, held to the same limits.  `memflow`: also a MemFlow 1080p
+    frame's lookup, B = 1 on 135x240 queries, on the smooth field, checked
+    and timed."""
     name = wrapper.__name__
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     check_corr_patch_ragged(g, dev, wrapper, plain)
@@ -638,6 +649,17 @@ def check_corr_patch(dev, wrapper, plain, replaces: str, also=None) -> dict:
         "flows": "smooth", **{k: fields["smooth"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "fields": fields,
     }
+    if memflow:
+        _, h, w = UNTILED_QUERIES
+        f1, pooled, flow = corr_patch_draw(g, dev, 1, h, w, c, 4, torch.bfloat16, "smooth")
+        err, vs_plain, vs_exact, shares = corr_patch_compare(wrapper, plain, f1, pooled, flow, r)
+        log(f"{name} [1,{h * w},{c}] r={r} L=4 bf16 smooth (a MemFlow frame): max |kernel - plain| = {err:.3e} = "
+            f"{vs_plain:.3e} scale, max |kernel - f32| = {vs_exact:.3e} scale")
+        if not (vs_plain <= 1.01 * 2**-7 and vs_exact <= 1.01 * 2**-8):
+            raise AssertionError(f"{name} disagrees at [1,{h * w},{c}]: {vs_plain} {vs_exact}")
+        row["max_abs_err"] = max(worst, err)
+        row["at_memflow_frame"] = {"shape": [1, h * w, c], "max_abs_err": err, "library_ms": None,
+                                   **time_corr_patch(wrapper, plain, f1, pooled, flow, r, shares)}
     return row
 
 
@@ -928,22 +950,24 @@ def device_profile(fn):
     return wall_ms, rows
 
 
-def profile_refine(model, enc) -> dict:
-    """Device time of one refinement by kernel name (torch.profiler), the
-    share of the refinement's wall time the device was busy, and the device
-    time and launches of the correlation-patch kernels (K3/K5)."""
-    wall_ms, rows = device_profile(lambda: model.refine(enc))
+def profile_refine(model, enc, *args) -> dict:
+    """Device time of one refinement, model.refine(enc, *args), by kernel name
+    (torch.profiler), the share of the refinement's wall time the device was
+    busy, and the device time and launches of the correlation-patch kernels
+    (K3/K5) and of K2."""
+    wall_ms, rows = device_profile(lambda: model.refine(enc, *args))
     busy = sum(r[0] for r in rows)
     log(f"profile of one refinement ({model.decoder_depth} iterations): wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy:.1f} ms = {100 * busy / wall_ms:.1f} %")
     for ms, count, key in rows[:16]:
         log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f} % {count:5d}x  {key[:100]}")
-    patch = [(ms, count) for ms, count, key in rows if "corr_patch" in key]
-    patch_ms, patch_calls = sum(r[0] for r in patch), sum(r[1] for r in patch)
-    if patch:
-        log(f"  corr_patch kernels: {patch_ms:.2f} ms over {patch_calls} launches")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy, "corr_patch_ms": patch_ms,
-            "corr_patch_launches": patch_calls}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy}
+    for name, marker in (("corr_patch", "corr_patch"), ("flash_attention", "flash_fwd")):
+        hits = [(ms, count) for ms, count, key in rows if marker in key]
+        out[f"{name}_ms"], out[f"{name}_launches"] = sum(r[0] for r in hits), sum(r[1] for r in hits)
+        if hits:
+            log(f"  {name} kernels: {out[f'{name}_ms']:.2f} ms over {out[f'{name}_launches']} launches")
+    return out
 
 
 def reset_launches(kernels) -> None:
@@ -1543,6 +1567,187 @@ def phase_single_tile(engine) -> dict:
     return {"frames": n, "shape": [h, w], "bit_equal": True}
 
 
+# ---- MemFlow ----------------------------------------------------------------
+
+MEMFLOW_FRAMES = 10              # 1080p frames of the MemFlow stream: the 8-slot ring wraps
+MEMFLOW_SMALL = (6, 480, 640)    # frames, H, W of the stream below both thresholds
+MEMFLOW_VALID_SLOTS = 3          # valid slots of the memory the reader is checked on
+
+
+def reader_reference(reader, query: torch.Tensor, mem) -> torch.Tensor:
+    """A plain readout that reads only the valid slots of batch row 0 (no
+    mask): rope, one f32 softmax per query row over those slots' tokens,
+    then out_proj, as MemoryReader computes it."""
+    from tpuflow_torch.core.gma import conv1x1
+    from tpuflow_torch.core.memflownet import rope_2d
+
+    _, h, w, dk = query.shape
+    hw, dv = h * w, mem.values.shape[-1]
+    keep = mem.valid[0] > 0
+    q = query[0].reshape(hw, dk).float() / math.sqrt(dk)
+    k, v = mem.keys[0, keep].float(), mem.values[0, keep].float().reshape(-1, dv)
+    if reader.use_rope:
+        q, k = rope_2d(q, h, w), rope_2d(k, h, w)
+    kt = k.reshape(-1, dk).t()
+    read = torch.empty((hw, dv), device=query.device)
+    for c0 in range(0, hw, 1024):
+        read[c0 : c0 + 1024] = torch.softmax(q[c0 : c0 + 1024] @ kt, dim=-1) @ v
+    return conv1x1(read.reshape(1, h, w, dv).to(query.dtype), reader.out_proj)
+
+
+def check_memory_reader(model, qk: torch.Tensor, full) -> dict:
+    """MemoryReader at the 1080p grid, on `full` (every slot written) with
+    only its first MEMFLOW_VALID_SLOTS slots marked valid and each other slot
+    holding a valid slot's keys with its values negated, so that a slot the
+    mask let through would move the readout by its own size: against
+    reader_reference, within 2^-6 of the readout's largest entry (both round
+    the f32 readout to bf16 once and apply out_proj in bf16); how far a
+    reader that let every slot through would be is logged beside it.  An empty memory must read
+    exactly zero: out_proj of zeros, bit for bit.  Then the reader's time on
+    the full memory (CUDA events, median of 5) and its operations."""
+    from tpuflow_torch.core.gma import conv1x1
+
+    reader = model.memory_reader
+    cap = full.valid.shape[1]
+    valid = torch.zeros_like(full.valid)
+    valid[:, :MEMFLOW_VALID_SLOTS] = 1.0
+    src = torch.arange(cap, device=valid.device) % MEMFLOW_VALID_SLOTS
+    sign = torch.where(valid[0] > 0, 1.0, -1.0)[None, :, None, None]
+    partial = full._replace(keys=full.keys[:, src], values=sign * full.values[:, src], valid=valid)
+    with torch.inference_mode():
+        got, ref = reader(qk, partial).float(), reader_reference(reader, qk, partial).float()
+        leaky = reader_reference(reader, qk, partial._replace(valid=torch.ones_like(valid))).float()
+        empty = reader(qk, model.empty_memory(1, 8 * qk.shape[1], 8 * qk.shape[2]))
+        zero = conv1x1(torch.zeros(qk.shape[:3] + (full.values.shape[-1],), dtype=qk.dtype, device=qk.device),
+                       reader.out_proj)
+    err = (got - ref).abs().max().item()
+    limit = 2**-6 * ref.abs().max().item()
+    unmasked = (leaky - ref).abs().max().item()
+    log(f"memory reader, {MEMFLOW_VALID_SLOTS} of {cap} slots valid at {tuple(qk.shape)}: max |reader - "
+        f"reference| = {err:.3e} (limit {limit:.3e}); every slot read instead: {unmasked:.3e}; empty memory "
+        f"reads out_proj(0) bit for bit: {torch.equal(empty, zero)}")
+    if not (err <= limit and torch.equal(empty, zero)):
+        raise AssertionError(f"memory reader disagrees with its reference: {err} (limit {limit}), "
+                             f"empty reads zero: {torch.equal(empty, zero)}")
+    hw = qk.shape[1] * qk.shape[2]
+    flops = 2.0 * hw * cap * hw * (qk.shape[-1] + full.values.shape[-1])
+    with torch.inference_mode():
+        ms = time_ms(lambda: reader(qk, full), reps=5, warmup=1)
+    log(f"memory reader on {cap} valid slots: {ms:.2f} ms, {flops / 1e12:.2f} TFLOP in f32 "
+        f"({flops / F32_FLOP_PER_S * 1e3:.2f} ms at the f32 peak)")
+    return {"max_abs_err": err, "limit": limit, "every_slot_diff": unmasked, "ms": ms, "tflop": flops / 1e12,
+            "f32_bound_ms": flops / F32_FLOP_PER_S * 1e3}
+
+
+def memflow_stream(engine, kernels, frames):
+    """(flows, wall s, peak GiB, launches) of one stream_flows call, the
+    counters zeroed just before it and read just after."""
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    flows, wall = timed_call(lambda: engine.stream_flows(frames))
+    launches = read_launches(kernels)
+    if flows.shape != frames.shape[:3] + (2,) or not np.isfinite(flows).all():
+        raise AssertionError(f"memflow: bad flows, shape {flows.shape}")
+    mem = engine.memory
+    n = len(frames)
+    filled = (torch.arange(mem.valid.shape[1], device=mem.valid.device) < n).float()[None]
+    if not (torch.equal(mem.valid, filled) and mem.ptr.tolist() == [n]):
+        raise AssertionError(f"memflow: memory after {n} frames has valid {mem.valid.tolist()}, "
+                             f"ptr {mem.ptr.tolist()}")
+    return flows, wall, torch.cuda.max_memory_allocated() / 2**30, launches
+
+
+def phase_memflow(kernels) -> dict:
+    """MemFlow at the product configuration, ModelConfig(model='memflow',
+    use_rope=True) (Twins, 4 levels, radius 4, 12 iterations, a memory of 8
+    slots, key 64 and value 128 channels, bf16, seeded random weights):
+    - stream_flows on MEMFLOW_FRAMES 1920x1080 frames after a warm-up call:
+      the 135x240 grid is above both thresholds, so each frame launches K3
+      48 times (12 lookups x 4 levels) and K2 12 times, K1 never; finite
+      flows; after a clip of n frames the first min(n, 8) slots are valid
+      and ptr = n;
+    - one frame on the full memory in stages (encoders, memory reader,
+      refinement; host clock around synchronized calls), and one refinement
+      under the profiler (K3's and K2's device time);
+    - the memory reader against a plain readout (check_memory_reader);
+    - compute_flow(frames, 0) equals stream_flows's frame 0 bit for bit (both
+      the pair (0, 0) on an empty memory); compute_flow_batch,
+      compute_flow_tiled and compute_flows_tiled_stride1 give compute_flow's
+      flows;
+    - a 640x480 stream (4 800 cells: a dense pyramid, K1 once per lookup, and
+      materialized GMA probabilities): K1 12 launches per frame, K2 and K3
+      none."""
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.core.corr import FlashCorr2
+    from tpuflow_torch.core.memflownet import MemFlowNet
+    from tpuflow_torch.runtime.engine import FlowEngine
+
+    engine = FlowEngine(ModelConfig(model="memflow", use_rope=True), seed=SEED + 17)
+    engine.load_model(allow_random_init=True)
+    model, cfg = engine.model, engine.config
+    if type(model) is not MemFlowNet or model.memory_capacity != 8 or not model.memory_reader.use_rope:
+        raise AssertionError(f"model 'memflow' built {type(model).__name__}")
+    n = MEMFLOW_FRAMES
+    frames = synthetic_clip(n, MAIN_H, MAIN_W, SEED + 17)
+    engine.stream_flows(frames[:2])                                # warm-up
+    flows, wall, peak, launches = memflow_stream(engine, kernels, frames)
+    want = expected_launches(kernels, flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
+                             flash_attention_fwd=n * cfg.decoder_depth)
+    if launches != want:
+        raise AssertionError(f"memflow 1080p: kernel launches {launches}, expected {want}")
+    log(f"memflow stream_flows: {n} frames of {MAIN_W}x{MAIN_H} in {wall:.3f} s = {n / wall:.4f} frames/s, "
+        f"peak {peak:.2f} GiB, launches {launches}, |flow| mean {np.abs(flows).mean():.3f} "
+        f"max {np.abs(flows).max():.3f}")
+    out = {"frames": n, "frames_per_s": n / wall, "wall_s": wall, "peak_gib": peak, "launches": launches}
+
+    full = engine.memory
+    with torch.inference_mode():
+        pair = engine._upload(frames[n - 2 :])[None]
+        enc, t_enc = timed_call(lambda: model.encode(pair))
+        if not isinstance(enc.corr, FlashCorr2) or enc.attn is not None:
+            raise AssertionError(f"memflow 1080p: {type(enc.corr).__name__}, attn materialized "
+                                 f"{enc.attn is not None}")
+        read, t_read = timed_call(lambda: model.memory_reader(enc.qk, full))
+        _, t_ref = timed_call(lambda: model.refine(enc, read))
+    stages = {"encode_ms": t_enc * 1e3, "memory_reader_ms": t_read * 1e3, "refine_ms": t_ref * 1e3}
+    log("memflow stages of one frame on the full memory:", json.dumps(stages))
+    out["stages_ms"] = stages
+    out["refine_profile"] = profile_refine(model, enc, read)
+    out["memory_reader"] = check_memory_reader(model, enc.qk, full)
+    del enc, read, pair, full
+    torch.cuda.empty_cache()
+
+    short = frames[:3]
+    streamed = engine.stream_flows(short)
+    single = [engine.compute_flow(short, i) for i in range(len(short))]
+    batch = engine.compute_flow_batch(short, [0, 2])
+    tiled = engine.compute_flow_tiled(short, 1)
+    stride1 = engine.compute_flows_tiled_stride1(short)
+    same = {"compute_flow(0) == stream_flows[0]": np.array_equal(single[0], streamed[0]),
+            "compute_flow_batch": all(np.array_equal(batch[j], single[i]) for j, i in enumerate((0, 2))),
+            "compute_flow_tiled": np.array_equal(tiled, single[1]),
+            "compute_flows_tiled_stride1": all(np.array_equal(stride1[i], single[i]) for i in range(len(short)))}
+    log(f"memflow entry points on {len(short)} frames of {MAIN_W}x{MAIN_H}, bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"memflow entry points disagree: {same}")
+    out["entry_points_bit_equal"] = sorted(same)
+
+    sn, sh, sw = MEMFLOW_SMALL
+    small = synthetic_clip(sn, sh, sw, SEED + 18)
+    engine.stream_flows(small[:2])                                 # warm-up
+    _, s_wall, s_peak, s_launches = memflow_stream(engine, kernels, small)
+    want = expected_launches(kernels, dense_lookup=sn * cfg.decoder_depth)
+    if s_launches != want:
+        raise AssertionError(f"memflow {sw}x{sh}: kernel launches {s_launches}, expected {want}")
+    log(f"memflow stream_flows: {sn} frames of {sw}x{sh} in {s_wall:.3f} s = {sn / s_wall:.4f} frames/s, "
+        f"peak {s_peak:.2f} GiB, launches {s_launches}")
+    out["small"] = {"frames": sn, "shape": [sh, sw], "frames_per_s": sn / s_wall, "wall_s": s_wall,
+                    "peak_gib": s_peak, "launches": s_launches}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 CHECKED_ARG = "--checked-build"
 
 
@@ -1614,19 +1819,22 @@ def main_checked() -> int:
 
 
 
-def phase_parity() -> dict:
+def phase_parity(kernels) -> dict:
     """The same weights and clip in f32 (volumes too) on the CPU and on the
     card, full configuration: tiled (two 128x128 tiles per frame, dense
     pyramids, K1), and one untiled window with the materialization threshold
     lowered to 0 so that 'auto' takes the large-grid path (FlashCorr2, K3's
-    f32 kernel).  Returns each path's error relative to the flow scale."""
+    f32 kernel); then MemFlow's stream_flows over the clip with both of its
+    gates lowered, so that every frame runs FlashCorr2 (K3) and GMA without
+    materialized probabilities (K2's f32 kernel).  Returns each path's error
+    relative to the flow scale."""
     from tpuflow_torch.config import ModelConfig
     from tpuflow_torch.core.corr import FlashCorr2
     from tpuflow_torch.runtime.engine import FlowEngine
 
     n, h, w = PARITY_SHAPE
     frames = synthetic_clip(n, h, w, SEED + 2)
-    out = {"tiled": {}, "untiled": {}}
+    out = {"tiled": {}, "untiled": {}, "memflow": {}}
     for dev in ("cpu", "cuda"):
         engine = FlowEngine(ModelConfig(), seed=SEED + 2, device=dev, dtype=torch.float32)
         engine.model.corr_dtype = torch.float32
@@ -1638,6 +1846,18 @@ def phase_parity() -> dict:
         if not isinstance(enc.corr_fwd, FlashCorr2):
             raise AssertionError(f"parity: expected FlashCorr2 above the threshold, got {type(enc.corr_fwd).__name__}")
         out["untiled"][dev] = engine.compute_flow(frames, n // 2)
+        engine = FlowEngine(ModelConfig(model="memflow", use_rope=True), seed=SEED + 2, device=dev,
+                            dtype=torch.float32)
+        engine.model.corr_dtype = torch.float32
+        engine.load_model(allow_random_init=True)
+        engine.model.materialize_threshold = engine.model.attn_materialize_bytes = 0
+        reset_launches(kernels)
+        out["memflow"][dev] = engine.stream_flows(frames)
+        cfg = engine.config
+        want = expected_launches(kernels, flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
+                                 flash_attention_fwd=n * cfg.decoder_depth)
+        if dev == "cuda" and read_launches(kernels) != want:
+            raise AssertionError(f"parity memflow: kernel launches {read_launches(kernels)}, expected {want}")
     rel = {}
     for path, res in out.items():
         scale = max(1.0, float(np.abs(res["cpu"]).max()))
@@ -1685,7 +1905,8 @@ def main() -> int:
     rows = [
         check_dense_lookup(dev),
         check_flash_attention(dev),
-        check_corr_patch(dev, flash2_patch_level, flash2_patch_level_plain, "tpuflow/kernels/flashcorr2.py:246"),
+        check_corr_patch(dev, flash2_patch_level, flash2_patch_level_plain, "tpuflow/kernels/flashcorr2.py:246",
+                         memflow=True),
         check_volume_patch(dev, "flat"),
         # On the 'flash' path K5 sees level 0 of the tile shape only.
         check_corr_patch(dev, flash_patch_level, flash_patch_level_plain, "tpuflow/kernels/flashcorr.py:157",
@@ -1718,7 +1939,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bof = phase_bof(kernels)
     cnn = phase_cnn(kernels, e2e["stages_ms"]["features_per_frame"])
-    parity = phase_parity()
+    memflow = phase_memflow(kernels)
+    parity = phase_parity(kernels)
 
     # Each kernel's launches on the path that runs it, counters zeroed just
     # before that path and read just after.
@@ -1735,11 +1957,14 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was launched on no path")
         if "at_untiled_window" in row:
             row["at_untiled_window"]["launches"] = untiled["auto"]["launches"][row["name"]]
+        if "at_memflow_frame" in row:
+            row["at_memflow_frame"]["launches"] = memflow["launches"][row["name"]]
         row["checked_build_launches"] = checked["launches"][row["name"]]
     log(json.dumps({"end_to_end": {k: v for k, v in e2e.items() if k != "launches"},
                     "untiled": untiled, "strided": strided, "formulations": forms,
                     "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
-                    "bof": bof, "cnn": cnn, "checked_build": checked, "parity_rel_err": parity}))
+                    "bof": bof, "cnn": cnn, "memflow": memflow, "checked_build": checked,
+                    "parity_rel_err": parity}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -44,12 +44,14 @@ def random_flax_params(model, seed: int, h: int = H, w: int = W, example=None):
     numpy: kernels N(0, 1/fan_in), biases, LayerNorm and GroupNorm scales
     and GMA's gamma off their constant inits so that a misrouted leaf shows
     in the outputs.  The tree's shapes come from jax.eval_shape, which traces
-    the init (on `example`, default a 3-frame window) without compiling it.
+    the init (on `example`, default a 3-frame window, or on a tuple of
+    arguments) without compiling it.
     The flow head's output conv is scaled down so that flows stay within a
     few pixels and the lookups read real taps."""
     if example is None:
         example = jnp.zeros((1, 3, h, w, 3))
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), example)
+    args = example if isinstance(example, tuple) else (example,)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args)
     rng = np.random.default_rng(seed)
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:

@@ -107,11 +107,14 @@ def test_cpu_device_and_dtype():
         resolve_device("mps")
 
 
-def test_cuda_default_raises_without_a_card(monkeypatch):
+@pytest.mark.parametrize("model", ["videoflow", "memflow"])
+def test_cuda_default_raises_without_a_card(monkeypatch, model):
     """The entry points default to the card and never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        FlowEngine(ModelConfig(**TINY))
+        FlowEngine(ModelConfig(model=model, **TINY))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FlowEngine(ModelConfig(model=model, **TINY), device="cuda")
 
 
 def test_load_model_needs_weights_or_opt_in(tmp_path):
@@ -134,8 +137,8 @@ def test_random_init_is_seeded():
 
 
 def test_unported_paths_name_their_slice():
-    """BOF and the cnn encoder, once refused as later slices, build now; only
-    MemFlow still names its slice (test_memflow_names_its_slice)."""
+    """BOF and the cnn encoder, once refused as later slices, build now (and
+    MemFlow: test_memflow_engine_builds_and_videoflow_does_not_stream)."""
     from tpuflow_torch.core.encoders import BasicEncoder
     from tpuflow_torch.core.mofnet import BOFNet
 
@@ -240,16 +243,26 @@ def test_window_batch_not_clamped_on_cpu_without_budget(monkeypatch):
     assert eng._clamp_window_batch(64, 5, eng._tiling(2160, 3840, 1280)[1]) == 64
 
 
-def test_memflow_names_its_slice():
-    """The untiled entry points are VideoFlow's; a MemFlow engine is refused
-    at construction with the slice that will bring it."""
-    with pytest.raises(NotImplementedError, match="MemFlow"):
-        FlowEngine(ModelConfig(model="memflow", **TINY), device="cpu")
+def test_memflow_engine_builds_and_videoflow_does_not_stream():
+    """A MemFlow engine builds MemFlowNet on the CPU with the config's memory
+    capacity and rope; stream_flows is MemFlow's alone, as in the JAX
+    engine."""
+    from tpuflow_torch.core.memflownet import MemFlowNet
+
+    eng = FlowEngine(ModelConfig(model="memflow", memory_capacity=5, use_rope=True, **TINY), device="cpu")
+    assert type(eng.model) is MemFlowNet and eng.model.memory_capacity == 5
+    assert eng.model.memory_reader.use_rope
+    frames = np.zeros((2, 16, 16, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="load_model"):
+        eng.stream_flows(frames)
+    with pytest.raises(ValueError, match="MemFlow mode"):
+        FlowEngine(ModelConfig(**TINY), device="cpu").stream_flows(frames)
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter that imports the port and runs one CPU forward
-    through the engine has neither jax nor tpuflow in sys.modules."""
+    """A fresh interpreter that imports the port and runs CPU forwards through
+    a VideoFlow and a MemFlow engine has neither jax nor tpuflow in
+    sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "from tpuflow_torch.config import ModelConfig\n"
@@ -261,6 +274,9 @@ def test_port_imports_no_jax():
         "assert out.shape == (3, 24, 40, 2) and np.isfinite(out).all()\n"
         "eng.model.materialize_threshold = 0\n"
         "assert eng.compute_flow(frames, 1).shape == (24, 40, 2)\n"
+        "mem = FlowEngine(ModelConfig(model='memflow', use_rope=True, decoder_depth=1, corr_levels=2, corr_radius=2), device='cpu')\n"
+        "mem.load_model(allow_random_init=True)\n"
+        "assert np.isfinite(mem.stream_flows(frames, warm_start=True)).all()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpuflow'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

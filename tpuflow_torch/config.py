@@ -1,4 +1,5 @@
-"""Model configuration (copy of tpuflow/config.py's ModelConfig).
+"""Model configuration (copy of tpuflow/config.py's ModelConfig and MemFlow
+stage table).
 
 A frozen dataclass with the VideoFlow defaults: T=5 windows, 4 correlation
 levels, radius 4, 12 refinement iterations, Twins-SVT encoders.
@@ -19,6 +20,24 @@ DEFAULT_CORR_RADIUS = 4
 
 # Tile size of tile mode (videoflow_processor.py:73-110).
 TILE_SIZE = 1280
+
+# Per-stage MemFlow model cfg (configs/{stage}_memflownet.py upstream): the
+# inference path gates rotary position encoding of the memory readout on
+# cfg.rope, which every released stage enables.
+MEMFLOW_STAGE_CFG = {
+    "sintel": {"use_rope": True},
+    "things": {"use_rope": True},
+    "kitti": {"use_rope": True},
+}
+
+
+def memflow_stage_cfg(stage: str) -> dict:
+    if stage not in MEMFLOW_STAGE_CFG:
+        raise ValueError(
+            f"Unknown MemFlow stage {stage!r} (expected one of "
+            f"{sorted(MEMFLOW_STAGE_CFG)})"
+        )
+    return MEMFLOW_STAGE_CFG[stage]
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,9 @@
 The context attention's q/k are computed once per window (`Attention`) and
 re-applied to the motion features on every refinement iteration
 (`Aggregate`), whose softmax(q k^T) v is kernel K2
-(kernels/flashattn.py).  Layout: NHWC at the public functions.
+(kernels/flashattn.py).  Where the probabilities fit memory, MemFlow
+computes them once per frame (`materialize_attention`) and each iteration
+is then one matrix product.  Layout: NHWC at the public functions.
 
 State-dict names follow upstream: att.to_qk.weight,
 update_block.aggregator.to_v.weight, update_block.aggregator.gamma.
@@ -11,7 +13,7 @@ update_block.aggregator.to_v.weight, update_block.aggregator.gamma.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,6 +25,35 @@ from ..kernels.flashattn import flash_attention_fwd
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """A 1x1 conv applied to NHWC features as the linear map it is."""
     return F.linear(x, conv.weight.flatten(1), conv.bias)
+
+
+def _pick_chunk(hw: int, max_chunk: int = 2048) -> int:
+    """Largest divisor of hw that is <= max_chunk."""
+    c = min(hw, max_chunk)
+    while hw % c:
+        c -= 1
+    return c
+
+
+def _row_chunk(b: int, hw: int, budget: int = 3 * 10**8) -> int:
+    """Query-row chunk for [b, chunk, hw] f32 score strips of at most
+    `budget` bytes."""
+    return _pick_chunk(hw, max(1, min(2048, budget // max(1, b * hw * 4))))
+
+
+def materialize_attention(q: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """softmax(q k^T) once per frame: q, k [B, h, w, d] -> [B, hw, hw] in
+    `out_dtype`, the scores and softmax in f32 over `_row_chunk` query rows
+    (tpuflow/core/gma.py:129)."""
+    b, h, w, d = q.shape
+    hw = h * w
+    qf = q.reshape(b, hw, d).float()
+    kt = k.reshape(b, hw, d).float().transpose(1, 2)
+    chunk = _row_chunk(b, hw)
+    out = torch.empty((b, hw, hw), dtype=out_dtype, device=q.device)
+    for i in range(0, hw, chunk):
+        out[:, i : i + chunk] = torch.softmax(torch.matmul(qf[:, i : i + chunk], kt), dim=-1)
+    return out
 
 
 class Attention(nn.Module):
@@ -49,13 +80,22 @@ class Aggregate(nn.Module):
         self.to_v = nn.Conv2d(dim, dim, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, q: torch.Tensor, k: torch.Tensor, fmap: torch.Tensor, attn: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """With `attn` (materialize_attention's [B, hw, hw]) one product
+        attn @ v in attn's dtype (the GEMM accumulates in f32), cast to
+        fmap's dtype; without it kernel K2."""
         b, h, w, _ = fmap.shape
         v = conv1x1(fmap, self.to_v)
         d = v.shape[-1]
-        out = flash_attention_fwd(
-            q.reshape(b, h * w, d).to(v.dtype).contiguous(),
-            k.reshape(b, h * w, d).to(v.dtype).contiguous(),
-            v.reshape(b, h * w, d).contiguous(),
-        ).reshape(b, h, w, d).to(fmap.dtype)
+        if attn is not None:
+            out = torch.matmul(attn, v.reshape(b, h * w, d).to(attn.dtype))
+        else:
+            out = flash_attention_fwd(
+                q.reshape(b, h * w, d).to(v.dtype).contiguous(),
+                k.reshape(b, h * w, d).to(v.dtype).contiguous(),
+                v.reshape(b, h * w, d).contiguous(),
+            )
+        out = out.reshape(b, h, w, d).to(fmap.dtype)
         return fmap + self.gamma.to(fmap.dtype) * out

@@ -61,6 +61,15 @@ class MOFEncoded(NamedTuple):
 ENCODER_CHUNK_PIXELS = 2**21
 
 
+def encode_chunked(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`net` over frames [M, H, W, 3], ENCODER_CHUNK_PIXELS at a time (both
+    encoders are per frame, so chunking changes no value)."""
+    per = max(1, ENCODER_CHUNK_PIXELS // (x.shape[1] * x.shape[2]))
+    if x.shape[0] <= per:
+        return net(x)
+    return torch.cat([net(x[i : i + per]) for i in range(0, x.shape[0], per)])
+
+
 class MOFNet(nn.Module):
     def __init__(
         self,
@@ -100,21 +109,12 @@ class MOFNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.att.to_qk.weight.dtype
 
-    @staticmethod
-    def _encode_chunked(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """`net` over frames [M, H, W, 3], ENCODER_CHUNK_PIXELS at a time
-        (both encoders are per frame, so chunking changes no value)."""
-        per = max(1, ENCODER_CHUNK_PIXELS // (x.shape[1] * x.shape[2]))
-        if x.shape[0] <= per:
-            return net(x)
-        return torch.cat([net(x[i : i + per]) for i in range(0, x.shape[0], per)])
-
     def frame_features(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, H, W, 3] in [0, 1] -> (fnet features [M, H/8, W/8, 256], cnet
         context [M, H/8, W/8, 256]).  Both encoders are per frame, so the
         stride-1 engine computes them once per frame."""
         x = (2.0 * frames - 1.0).to(self.dtype)
-        return self._encode_chunked(self.fnet, x), self._encode_chunked(self.cnet, x)
+        return encode_chunked(self.fnet, x), encode_chunked(self.cnet, x)
 
     def prepare_context(self, ctx: torch.Tensor):
         """Per-frame context [M, h, w, 256] -> (net, inp, q, k)."""
@@ -168,9 +168,9 @@ class MOFNet(nn.Module):
             raise ValueError("MOFNet needs at least 3 frames")
         n = t - 2
         x = (2.0 * frames - 1.0).to(self.dtype)
-        feats = self._encode_chunked(self.fnet, x.reshape(b * t, h, w, 3))
+        feats = encode_chunked(self.fnet, x.reshape(b * t, h, w, 3))
         feats = feats.reshape(b, t, *feats.shape[1:])
-        ctx_i = self._encode_chunked(self.cnet, x[:, 1 : t - 1].reshape(b * n, h, w, 3))
+        ctx_i = encode_chunked(self.cnet, x[:, 1 : t - 1].reshape(b * n, h, w, 3))
         ctx_i = ctx_i.reshape(b, n, *ctx_i.shape[1:])
         pad = torch.zeros_like(ctx_i[:, :1])
         return self.encode_from_features(feats, torch.cat([pad, ctx_i, pad], dim=1))

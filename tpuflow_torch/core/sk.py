@@ -1,6 +1,7 @@
-"""SKFlow update blocks of VideoFlow's MOF net (port of tpuflow/core/sk.py):
-PCBlock4_Deep_nopool_res, SKMotionEncoder6_Deep_nopool_res and
-SKUpdateBlock6_Deep_nopoolres_AllDecoder2 under their upstream state-dict
+"""SKFlow update blocks (port of tpuflow/core/sk.py): PCBlock4_Deep_nopool_res,
+VideoFlow MOF's SKMotionEncoder6_Deep_nopool_res and
+SKUpdateBlock6_Deep_nopoolres_AllDecoder2, and MemFlow's two-frame
+SKMotionEncoderMem and SKUpdateBlockMem, under their upstream state-dict
 names.  Public tensors are NHWC; the convs run on NCHW views of them.
 """
 
@@ -141,3 +142,75 @@ class SKUpdateBlockMOF(nn.Module):
         (net, mhs, mask, delta_flow), all NHWC."""
         net, mhs, delta = self.step(net, mhs, inp, corr, flow, q, k, bs)
         return net, mhs, self.upsample_mask(net), delta
+
+
+class SKMotionEncoderMem(nn.Module):
+    """MemFlow's two-frame motion encoder: the correlation lookup, the
+    2-channel flow and the memory readout -> 128-channel motion features
+    (NCHW)."""
+
+    def __init__(self, corr_levels: int, corr_radius: int, k_conv: Sequence[int], value_dim: int = 128):
+        super().__init__()
+        cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
+        self.convc1 = PCBlock4(cor_planes, 256, k_conv)
+        self.convc2 = PCBlock4(256, 192, k_conv)
+        self.convf1_ = nn.Conv2d(2, 128, 1)
+        self.convf2 = PCBlock4(128, 64, k_conv)
+        self.conv = PCBlock4(192 + 64 + value_dim, 128 - 2, k_conv)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor, mem_read: torch.Tensor) -> torch.Tensor:
+        """flow [B, 2, h, w], corr [B, cor_planes, h, w], mem_read [B, 128,
+        h, w] -> [B, 128, h, w]."""
+        cor = self.convc2(gelu(self.convc1(corr)))
+        flow = flow.to(corr.dtype)
+        flo = self.convf2(self.convf1_(flow))
+        out = self.conv(torch.cat([cor, flo, mem_read], dim=1))
+        return torch.cat([out, flow], dim=1)
+
+
+class SKUpdateBlockMem(nn.Module):
+    """MemFlow's update block: the motion encoder with the once-per-frame
+    memory readout, GMA aggregation, PCBlock 'gru', 2-channel flow head and
+    a 64*9-channel upsample mask."""
+
+    def __init__(
+        self,
+        corr_levels: int = 4,
+        corr_radius: int = 4,
+        hidden_dim: int = 128,
+        k_conv: Sequence[int] = (1, 15),
+        pc_updater_conv: Sequence[int] = (1, 7),
+        value_dim: int = 128,
+    ):
+        super().__init__()
+        self.encoder = SKMotionEncoderMem(corr_levels, corr_radius, k_conv, value_dim)
+        self.gru = PCBlock4(128 + hidden_dim + hidden_dim + 128, hidden_dim, pc_updater_conv)
+        self.flow_head = PCBlock4(hidden_dim, 2, k_conv)
+        self.mask = nn.Sequential(
+            nn.Conv2d(hidden_dim, 256, 3, padding=1),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(256, 64 * 9, 1),
+        )
+        self.aggregator = Aggregate(dim=128)
+
+    def step(self, net, inp, corr, flow, q, k, mem_read, attn=None):
+        """The refinement step without the mask head (NHWC in and out): net,
+        inp [B, h, w, 128], corr [B, h, w, L*(2r+1)^2], flow [B, h, w, 2]
+        f32, q/k [B, h, w, 128], mem_read [B, h, w, 128], attn [B, hw, hw]
+        or None (kernel K2) -> (net, motion, delta_flow)."""
+        motion = nchw_to_nhwc(self.encoder(nhwc_to_nchw(flow), nhwc_to_nchw(corr), nhwc_to_nchw(mem_read)))
+        motion_global = self.aggregator(q, k, motion, attn)
+        x = torch.cat([net, inp, motion, motion_global], dim=-1)
+        net = nchw_to_nhwc(self.gru(nhwc_to_nchw(x)))
+        delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))
+        return net, motion, delta
+
+    def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
+        """[B, h, w, 128] -> [B, h, w, 576] convex-upsample weights."""
+        return nchw_to_nhwc(0.25 * self.mask(nhwc_to_nchw(net)))
+
+    def forward(self, net, inp, corr, flow, q, k, mem_read, attn=None):
+        """One full step, as the reference's update block returns it: (net,
+        motion, mask, delta_flow), all NHWC."""
+        net, motion, delta = self.step(net, inp, corr, flow, q, k, mem_read, attn)
+        return net, motion, self.upsample_mask(net), delta

@@ -1,5 +1,5 @@
-"""Weights into the port: real VideoFlow `.pth` checkpoints, and flax
-parameter trees of the JAX reference (for the parity tests).
+"""Weights into the port: real VideoFlow and MemFlow `.pth` checkpoints, and
+flax parameter trees of the JAX reference (for the parity tests).
 
 The port's modules carry the upstream state-dict names, so a checkpoint
 loads directly once `module.` prefixes and the tensors inference never
@@ -14,7 +14,7 @@ scope; the cnn encoder's `layer{i}_{j}` become `layer{i}.{j}`.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -57,8 +57,9 @@ def torch_key_from_flax(path: str) -> str:
 
 
 def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flattened flax MOFNet params ('params/...' paths) -> the port's state
-    dict (f32 CPU tensors, upstream names and layouts)."""
+    """Flattened flax MOFNet, BOFNet or MemFlowNet params ('params/...'
+    paths) -> the port's state dict (f32 CPU tensors, upstream names and
+    layouts)."""
     out = {}
     for path, val in flat.items():
         val = np.asarray(val, dtype=np.float32)
@@ -73,9 +74,10 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """Read a VideoFlow `.pth` for the port: unwrap 'state_dict', strip the
-    DataParallel `module.` prefix, drop the VIDEOFLOW_IGNORE tensors."""
+def load_torch_state_dict(path: str, ignore: Sequence[str] = VIDEOFLOW_IGNORE) -> Dict[str, torch.Tensor]:
+    """Read a VideoFlow or MemFlow `.pth` for the port: unwrap 'state_dict',
+    strip the DataParallel `module.` prefix, drop the tensors that match a
+    pattern of `ignore` (VIDEOFLOW_IGNORE, or convert_memflow.MEMFLOW_IGNORE)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
@@ -83,6 +85,6 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     for k, v in ckpt.items():
         if k.startswith("module."):
             k = k[len("module."):]
-        if not any(re.search(p, k) for p in VIDEOFLOW_IGNORE):
+        if not any(re.search(p, k) for p in ignore):
             out[k] = v
     return out

@@ -1,5 +1,5 @@
-"""FlowEngine: the port's inference engine, the VideoFlow (MOF and BOF) part
-of tpuflow/runtime/engine.py.
+"""FlowEngine: the port's inference engine (tpuflow/runtime/engine.py), for
+VideoFlow (MOF and BOF) and MemFlow.
 
 - `compute_flows_tiled_stride1`: flows for every frame of a clip, one
   centred window per output frame (reference stride-1 semantics,
@@ -24,8 +24,14 @@ the model; the stride-1 and per-frame entry points keep the middle interior
 frame's forward flow, and tile mode pastes the tiles back (reference hard
 paste).  A frame that fits one tile goes to `compute_flow`, as in the JAX
 engine.  Numpy in, numpy out.  Runs on the card unless the caller passes
-device='cpu'.  MemFlow is a later slice of the port (`build_model` refuses
-it).
+device='cpu'.
+
+MemFlow (`ModelConfig(model='memflow')`): `stream_flows` carries the
+model's memory across a clip, frame i's flow from the pair (i-1, i);
+`compute_flow` / `compute_flow_batch` run each requested frame's last two
+frames on an empty memory, as the reference's per-call inference does; the
+tile entry points run whole frames through `compute_flow` (MemFlow never
+tiles).
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ import torch.nn as nn
 
 from ..config import TILE_SIZE, ModelConfig
 from ..core.corr import dense_volume_bytes
+from ..core.memflownet import CARRY_CLAMP, MemFlowNet
 from ..core.mofnet import BOFNet, MOFNet
 from ..core.padding import pad_dims, pad_frames_edge
-from .convert import load_torch_state_dict
+from .convert import VIDEOFLOW_IGNORE, load_torch_state_dict
+from .convert_memflow import MEMFLOW_IGNORE
 from .device import resolve_device
 from .tiles import (
     calculate_tile_grid,
@@ -51,7 +59,7 @@ from .tiles import (
     paste_tile_flows,
     resolve_tile_layout,
 )
-from .windows import centered_window_indices
+from .windows import centered_window_indices, trailing_window_indices
 
 # Sentinel checkpoint path: explicit opt-in to seeded random weights.
 RANDOM_INIT = "__random_init__"
@@ -75,20 +83,15 @@ def build_model(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     dense_lookup: str = "auto",
-) -> MOFNet:
-    """MOFNet, or BOFNet for architecture 'bof', for `cfg` on `device` in
-    `dtype` (default: bf16 on the card, f32 on the CPU), parameters
-    uninitialized until loaded.  `encoder=None` follows cfg.encoder
-    ('twins' or 'cnn').  `dense_lookup`: how a DenseCorrPyramid is looked up
-    ('auto' = the fused kernel K1; see MOFNet)."""
+) -> nn.Module:
+    """MemFlowNet for model 'memflow', else MOFNet, or BOFNet for architecture
+    'bof', for `cfg` on `device` in `dtype` (default: bf16 on the card, f32
+    on the CPU), parameters uninitialized until loaded.  `encoder=None`
+    follows cfg.encoder ('twins' or 'cnn').  `dense_lookup`: how a
+    DenseCorrPyramid is looked up ('auto' = the fused kernel K1; see
+    MOFNet)."""
     dev = resolve_device(device)
-    if cfg.model != "videoflow":
-        raise NotImplementedError(
-            f"{cfg.model}: only VideoFlow (MOF and BOF) is ported; MemFlow is a "
-            "later slice of the port (see ROADMAP.md)."
-        )
-    cls = BOFNet if cfg.architecture == "bof" else MOFNet
-    model = cls(
+    kw = dict(
         corr_levels=cfg.corr_levels,
         corr_radius=cfg.corr_radius,
         decoder_depth=cfg.decoder_depth,
@@ -99,6 +102,10 @@ def build_model(
         corr_impl=cfg.corr_impl,
         dense_lookup=dense_lookup,
     )
+    if cfg.model == "memflow":
+        model = MemFlowNet(memory_capacity=cfg.memory_capacity, use_rope=cfg.use_rope, **kw)
+    else:
+        model = (BOFNet if cfg.architecture == "bof" else MOFNet)(**kw)
     return model.to(device=dev, dtype=dtype or default_compute_dtype(dev)).eval()
 
 
@@ -154,7 +161,8 @@ class _Fetch:
 
 
 class FlowEngine:
-    """Optical-flow engine for VideoFlow (MOF and BOF) on one device."""
+    """Optical-flow engine for VideoFlow (MOF and BOF) and MemFlow on one
+    device."""
 
     def __init__(
         self,
@@ -176,6 +184,8 @@ class FlowEngine:
         self.params = params
         self.seed = seed
         self._loaded = False
+        # MemFlow: the memory after the last stream_flows call, on the device.
+        self.memory = None
 
     def load_model(
         self, checkpoint_path: Optional[str] = None, allow_random_init: bool = False
@@ -192,7 +202,8 @@ class FlowEngine:
             checkpoint_path, allow_random_init = None, True
         path = checkpoint_path or self.config.checkpoint_path
         if path and os.path.exists(path):
-            self.model.load_state_dict(load_torch_state_dict(path), strict=True)
+            ignore = MEMFLOW_IGNORE if self.config.model == "memflow" else VIDEOFLOW_IGNORE
+            self.model.load_state_dict(load_torch_state_dict(path, ignore), strict=True)
             self._loaded = True
             return path
         if not allow_random_init:
@@ -249,15 +260,19 @@ class FlowEngine:
             }
         return out
 
+    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+        """Frames [M, h, w, 3] (uint8 0..255 or float 0..1) -> f32 [M, ph,
+        pw, 3] in [0, 1] on the device, edge-padded to a multiple of 8."""
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+        return pad_frames_edge(x, pad_dims(x.shape[1], x.shape[2], 8))
+
     def _window_flows_all(self, windows: np.ndarray) -> np.ndarray:
         """Untiled forward: windows [B, T, h, w, 3] (uint8 0..255 or float
         0..1) -> forward flows of ALL interior frames [B, T-2, h, w, 2]."""
         b, t, h, w = windows.shape[:4]
-        pads = pad_dims(h, w, 8)
-        pt, _, pl, _ = pads
-        x = torch.from_numpy(windows).to(self.device)
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        x = pad_frames_edge(x.reshape(b * t, h, w, 3), pads)
+        pt, _, pl, _ = pad_dims(h, w, 8)
+        x = self._upload(windows.reshape(b * t, h, w, 3))
         up_fwd, _ = self.model(x.reshape(b, t, *x.shape[1:]))
         return up_fwd[:, :, pt : pt + h, pl : pl + w].cpu().numpy()
 
@@ -271,10 +286,21 @@ class FlowEngine:
         self, frames: Sequence[np.ndarray], frame_indices: Sequence[int]
     ) -> np.ndarray:
         """[len(frame_indices), H, W, 2]: one centred window per requested
-        frame, all windows in one batch, the middle interior flow of each."""
+        frame, all windows in one batch, the middle interior flow of each.
+        MemFlow: per requested frame, the last two frames of its trailing
+        window on an empty memory."""
         self._require_loaded()
         arr = np.asarray(frames)
         t = self.config.sequence_length
+        if self.config.model == "memflow":
+            n, h, w = arr.shape[:3]
+            pt, _, pl, _ = pad_dims(h, w, 8)
+            out = []
+            for idx in frame_indices:
+                pair = self._upload(arr[trailing_window_indices(n, idx, max(2, t))[-2:]])
+                flow, _, _ = self.model(pair[None], self.model.empty_memory(1, pair.shape[1], pair.shape[2]))
+                out.append(flow[0, pt : pt + h, pl : pl + w].cpu().numpy())
+            return np.stack(out)
         wins = np.stack([centered_window_indices(len(arr), i, t) for i in frame_indices])
         flows = self._window_flows_all(arr[wins])
         return flows[:, flows.shape[1] // 2]
@@ -287,7 +313,9 @@ class FlowEngine:
         at -1, T-3, 2T-5, ... (indices clipped to the clip) and every interior
         flow is kept, so T-2 times fewer windows run than at stride 1.
         Batches hold `window_batch` windows; the last one holds what is
-        left."""
+        left.  A VideoFlow mode."""
+        if self.config.model == "memflow":
+            raise ValueError("compute_flows_strided is a VideoFlow mode; MemFlow streams with stream_flows")
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
@@ -309,10 +337,7 @@ class FlowEngine:
         """One frame's tiles of one shape group -> (feats, ctx), each
         [G, h8, w8, 256] on the device."""
         tiles = extract_tile_group(frame[None], tiles_info, idxs, overlap)[:, 0]
-        x = torch.from_numpy(tiles).to(self.device)
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        x = pad_frames_edge(x, pad_dims(x.shape[1], x.shape[2], 8))
-        return self.model.frame_features(x)
+        return self.model.frame_features(self._upload(tiles))
 
     def _middle_flow(self, up_fwd: torch.Tensor, th: int, tw: int) -> torch.Tensor:
         """Forward flows of the interior frames [B, T-2, H8, W8, 2] -> the
@@ -345,12 +370,12 @@ class FlowEngine:
     ) -> np.ndarray:
         """Tile-mode forward flow [H, W, 2] of frame `frame_idx` from its
         centred window, each shape group's tiles `tile_batch` at a time (the
-        last chunk holds what is left).  A frame that fits one tile is
-        compute_flow's."""
+        last chunk holds what is left).  A frame that fits one tile, and any
+        MemFlow frame, is compute_flow's."""
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
-        if h <= tile_size and w <= tile_size:
+        if self.config.model == "memflow" or (h <= tile_size and w <= tile_size):
             return self.compute_flow(arr, frame_idx)
         tiles_info, groups = self._tiling(h, w, tile_size)
         win = centered_window_indices(n, frame_idx, self.config.sequence_length)
@@ -427,12 +452,12 @@ class FlowEngine:
         their T frames).  `window_batch` windows run as one batch (clamped,
         see _clamp_window_batch); a batch's flows are fetched and pasted
         after the next batch has been queued.  A clip whose frames fit one
-        tile runs compute_flow per frame."""
+        tile, and a MemFlow clip, runs compute_flow per frame."""
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
         t = self.config.sequence_length
-        if h <= tile_size and w <= tile_size:
+        if self.config.model == "memflow" or (h <= tile_size and w <= tile_size):
             return np.stack([self.compute_flow_tiled(arr, i, tile_size, overlap) for i in range(n)])
         wb = max(1, window_batch)
         if wb == 1 and os.environ.get("TPUFLOW_STRIDE1", "trio") == "pairs":
@@ -482,6 +507,39 @@ class FlowEngine:
         if pending is not None:
             finalize(*pending)
         return flows_out
+
+    @torch.inference_mode()
+    def stream_flows(self, frames: Sequence[np.ndarray], warm_start: bool = False) -> np.ndarray:
+        """MemFlow streaming: flows [N, H, W, 2], frame i's from the pair
+        (max(i-1, 0), i), with the memory carried across the whole clip
+        (frame 0 pairs with itself on an empty memory).  `warm_start`: each
+        frame starts from the previous frame's 1/8-resolution flow, clamped
+        to +-CARRY_CLAMP.  Frames go to the device one at a time; a frame's
+        flow is fetched while the next one runs.  The memory after the last
+        frame stays in `self.memory`.  (The JAX engine's `chunk` argument,
+        which it reads nowhere, has no counterpart.)"""
+        if self.config.model != "memflow":
+            raise ValueError("stream_flows is a MemFlow mode")
+        self._require_loaded()
+        arr = np.asarray(frames)
+        n, h, w = arr.shape[:3]
+        pt, _, pl, _ = pad_dims(h, w, 8)
+        flows = np.empty((n, h, w, 2), np.float32)
+        memory = prev = low = pending = None
+        for i in range(n):
+            cur = self._upload(arr[i : i + 1])
+            if memory is None:
+                memory, prev = self.model.empty_memory(1, cur.shape[1], cur.shape[2]), cur
+            flow, memory, low = self.model(torch.cat([prev, cur])[None], memory, low if warm_start else None)
+            low = low.clamp(-CARRY_CLAMP, CARRY_CLAMP)
+            fetched = _Fetch(flow[0, pt : pt + h, pl : pl + w])
+            if pending is not None:
+                flows[pending[0]] = pending[1].result()
+            pending, prev = (i, fetched), cur
+        if pending is not None:
+            flows[pending[0]] = pending[1].result()
+        self.memory = memory
+        return flows
 
     def _stride1_pairs_loop(self, arr: np.ndarray, tile_size: int, overlap: int, progress_cb=None) -> np.ndarray:
         """The pair-cached stride-1 loop (tpuflow/runtime/engine.py:820):

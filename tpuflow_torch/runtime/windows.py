@@ -18,3 +18,12 @@ def centered_window_indices(num_frames: int, frame_idx: int, length: int) -> np.
         else:
             seq.append(seq[-1])
     return np.asarray(seq[:length], dtype=np.int32)
+
+
+def trailing_window_indices(num_frames: int, frame_idx: int, length: int) -> np.ndarray:
+    """Trailing window [idx+1-L, idx], front-padded with the first frame
+    (memflow_processor.py:97-139); L is at least 2."""
+    length = max(2, length)
+    start = frame_idx + 1 - length
+    seq = [max(0, i) for i in range(start, frame_idx + 1)]
+    return np.asarray(seq, dtype=np.int32)
