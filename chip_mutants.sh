@@ -33,10 +33,14 @@
 #              last chunk of tile_batch tiles -> the 4K phase fails
 #   readermask tpuflow_torch/core/memflownet.py: the memory reader scores
 #              invalid slots like valid ones -> the MemFlow phase fails
-# The unbroken copy must pass all ten phases.  Needs one CUDA card and
+#   taaflow    tpuflow_torch/tools/pipeline.py: the render's TAA warps along
+#              the current frame's flow instead of the previous one's
+#                                         -> the pipeline phase fails
+# The unbroken copy must pass all eleven phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
-#     bash chip_mutants.sh        # from the repository root
+#     bash chip_mutants.sh                 # from the repository root
+#     bash chip_mutants.sh taaflow k2mask  # only the copies named
 set -u
 root=$(pwd)
 work=$(mktemp -d)
@@ -71,6 +75,7 @@ runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "checked": lambda: cs.phase_checked_wait(cs.phase_checked_start()),
         "uhd": lambda: cs.phase_uhd(engine, kernels),
         "memflow": lambda: cs.phase_memflow(cs.kernel_counters()),
+        "pipeline": lambda: cs.phase_pipeline(cs.kernel_counters()),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
         "k3": lambda: cs.check_corr_patch(dev, *k3),
         "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band")}
@@ -79,23 +84,26 @@ k3 = (k3f, k3p, "tpuflow/kernels/flashcorr2.py:246")
 for name in phases:
     try:
         runs[name]()
-        print("COPY", copy, name, "PASSED")
+        print("COPY", copy, name, "PASSED", flush=True)
     except AssertionError as exc:
-        print("COPY", copy, name, "FAILED:", str(exc)[:200])
+        # On a line of its own: a failure inside the CLI leaves the line of
+        # its progress bar open on stderr.
+        print("\nCOPY", copy, name, "FAILED:", str(exc)[:200], flush=True)
     torch.cuda.empty_cache()
 '
 
 status=0
-for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
-            k1stride tilebatch readermask; do
+copies=${*:-unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
+                k1stride tilebatch readermask taaflow}
+for copy in $copies; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
-    cp -r "$root/chip_smoke.py" "$root/tpuflow_torch" "$work/copy/"
-    rm -rf "$work/copy/tpuflow_torch/build"
+    cp -r "$root/chip_smoke.py" "$root/tpuflow_torch" "$root/native" "$work/copy/"
+    rm -rf "$work/copy/tpuflow_torch/build" "$work/copy/native/build"
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -124,11 +132,13 @@ for copy in unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule
                    sed -i 's/for c0 in range(0, len(idxs), tile_batch):/for c0 in range(0, len(idxs) - tile_batch + 1, tile_batch):/' $edited ;;
         readermask) phases=memflow; edited=tpuflow_torch/core/memflownet.py
                    sed -i '/sim.masked_fill_(invalid\[i\], -1e9)/d' $edited ;;
+        taaflow)   phases=pipeline; edited=tpuflow_torch/tools/pipeline.py
+                   sed -i 's/out\["taa_frame"\] = self._advance("flow", frame_f32, self.prev_flow)/out["taa_frame"] = self._advance("flow", frame_f32, flow_t)/' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

@@ -67,7 +67,20 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    off, on the CPU (plain versions) and on the card (kernels): tiled, one
    untiled window above the materialization threshold (FlashCorr2), and
    MemFlow's stream_flows with both of its gates lowered (K3 and K2).
-14. checked build, in a child process started before phase 2 (this script
+14. pipeline: the video pipeline and its CLI (tpuflow_torch.tools.cli.main in
+   this process) on a synthetic 6-frame 1920x1080 clip written uncompressed:
+   --tile, the default untiled route (--batch-frames 4) and --model memflow,
+   each with --taa --save-flow both, counters zeroed before and read after
+   each run; every cached flow bit-equal to a direct engine call on the same
+   frames, its .flo bytes equal to FlowFileHandler's and the native
+   cacheio's, its LODs equal to LODGenerator's (ops.generate_lods on the
+   card within 1e-6), each output video of the mode's size; the --tile
+   cache re-rendered once per --flow-format and once with --flow-input (no
+   launch), the render's device work against the same ops on the CPU; the
+   stages' host times, the render's device time per frame (CUDA events) and
+   each route's peak memory; and `python3 -m tpuflow_torch.tools.cli
+   --show-tiles` with jax and the JAX package blocked.
+15. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
    with its bounds guards (kernels/_build.py, checked=True), each of the six
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
@@ -84,6 +97,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1872,6 +1886,468 @@ def phase_parity(kernels) -> dict:
     return rel
 
 
+PIPELINE_FRAMES = 6              # frames of the 1080p clip the CLI processes (cut from 8 for time)
+PIPELINE_FORMATS = ("gamedev", "hsv", "torchvision", "motion-vectors-rgb8", "motion-vectors-rg8")
+# Card against CPU for the render's ops: uint8 outputs within 1 on at most
+# this share of entries (atan2 and exp differ by an ulp between devices), or
+# for 'hsv' within one step of its uint8 hue (2 degrees moves R, G or B by
+# up to 255 * 2 / 60 = 8.5); TAA histories within TAA_TOL on the 0-255 scale.
+U8_SHARE_LIMIT = 1e-3
+HSV_HUE_STEP = 9
+TAA_TOL = 1e-3
+
+
+def write_clip(path: str, n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """An uncompressed (I420) clip of n frames: a random texture moving by
+    (3, 1) px per frame under two shapes that move on their own.  Returns
+    the frames as the port's FrameExtractor decodes them."""
+    import cv2
+
+    from tpuflow_torch.pipeline.video_io import FrameExtractor
+
+    frames = synthetic_clip(n, h, w, seed)
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"I420"), 24.0, (w, h))
+    for i, f in enumerate(frames):
+        f = f.copy()
+        cv2.circle(f, (300 + 40 * i, 400), 120, (255, 64, 0), -1)
+        cv2.rectangle(f, (1200, 200 + 25 * i), (1500, 500 + 25 * i), (16, 200, 240), -1)
+        out.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    out.release()
+    decoded, *_ = FrameExtractor(path).extract_frames(max_frames=n, progress=False)
+    return np.stack(decoded)
+
+
+class StageClock:
+    """Host-clock time of a CLI run's stages, taken by wrapping the methods
+    that run them (restored by close()): decode (FrameExtractor.extract_frames),
+    flows (FlowPipeline.compute_all_flows, synchronized), the engine's entry
+    inside it (synchronized; an entry called by another counts once), the
+    cache writes on its thread pool (FlowCacheManager.save_flow_to_cache,
+    summed over the threads), the --save-flow directory, render (_render_loop,
+    synchronized) with its device step per frame (RenderStep.__call__: CUDA
+    events around the uploads, ops and fetches, and the host clock), LODs
+    (generate_lods_for_cache) and their audit (print_lod_cache_statistics).
+    `check`: a callable run after each RenderStep call, outside the clock."""
+
+    def __init__(self, check=None):
+        import threading
+
+        from tpuflow_torch.pipeline.cache import FlowCacheManager
+        from tpuflow_torch.pipeline.video_io import FrameExtractor
+        from tpuflow_torch.runtime.engine import FlowEngine
+        from tpuflow_torch.tools.pipeline import FlowPipeline, RenderStep
+
+        self.s = {}
+        self.active = set()
+        self.step_event_ms, self.step_host_ms = [], []
+        self.lock = threading.Lock()
+        self.restore = []
+        for owner, name, key, sync in ((FrameExtractor, "extract_frames", "decode", False),
+                                       (FlowPipeline, "compute_all_flows", "flows", True),
+                                       (FlowEngine, "compute_flows_tiled_stride1", "engine", True),
+                                       (FlowEngine, "compute_flow_batch", "engine", True),
+                                       (FlowEngine, "compute_flows_strided", "engine", True),
+                                       (FlowEngine, "stream_flows", "engine", True),
+                                       (FlowCacheManager, "save_flow_to_cache", "cache_write_thread", False),
+                                       (FlowCacheManager, "save_optical_flow_files", "save_flow_dir", False),
+                                       (FlowPipeline, "_render_loop", "render", True),
+                                       (FlowCacheManager, "generate_lods_for_cache", "lods", False),
+                                       (FlowCacheManager, "print_lod_cache_statistics", "lod_audit", False)):
+            self._wrap(owner, name, key, sync)
+        orig = RenderStep.__call__
+
+        def step(this, *args):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            got = orig(this, *args)
+            e1.record()
+            e1.synchronize()
+            self.step_host_ms.append((time.perf_counter() - t0) * 1e3)
+            self.step_event_ms.append(e0.elapsed_time(e1))
+            if check is not None:
+                check(this, args, got)
+            return got
+
+        RenderStep.__call__ = step
+        self.restore.append((RenderStep, "__call__", orig))
+
+    def _wrap(self, owner, name, key, sync):
+        orig = getattr(owner, name)
+
+        def timed(*args, **kw):
+            if key in self.active:                   # called by a clocked entry of its own key
+                return orig(*args, **kw)
+            if sync:
+                self.active.add(key)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                    self.active.discard(key)
+                with self.lock:
+                    self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+        self.restore.append((owner, name, orig))
+
+    def close(self) -> None:
+        for owner, name, orig in reversed(self.restore):
+            setattr(owner, name, orig)
+
+
+class RenderCheck:
+    """The render's device work against the same ops on the CPU, frame by
+    frame (a StageClock check): the encoded flows (and the external flow's)
+    within 1 ('hsv': HSV_HUE_STEP) on at most U8_SHARE_LIMIT of entries;
+    each TAA history on the card against ops.taa_step on the CPU from the
+    same inputs, recomputed here: frame i, the flow of frame i-1 (flow TAA), no flow (simple) or
+    frame i's external flow, and the card's history of frame i-1, within
+    TAA_TOL.  The CPU's own chain of histories is kept beside it and its
+    drift from the card's reported: where a pixel's luminance is far from
+    its history's, the bilateral weights are exp(-80) or so, and an ulp of
+    the history moves them by 80 ulps, so the two chains part by more than
+    one step's rounding."""
+
+    def __init__(self):
+        self.prev_flow = None
+        self.card = {}            # the card's history of the last frame, on the host
+        self.chain = {}           # the CPU's own chain
+        self.frames = 0
+        self.worst = {"u8_share": 0.0, "taa_abs": 0.0, "taa_chain_drift": 0.0}
+
+    def u8(self, what, got, ref, most):
+        diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        share = float((diff > 0).mean())
+        self.worst["u8_share"] = max(self.worst["u8_share"], share)
+        self.worst["u8_max"] = max(self.worst.get("u8_max", 0), int(diff.max()))
+        if diff.max() > most or share > U8_SHARE_LIMIT:
+            raise AssertionError(f"render frame {self.frames}: {what} on the card differs from the CPU by up to "
+                                 f"{diff.max()} on {share:.2e} of entries")
+
+    def taa(self, key, step, frame, flow):
+        from tpuflow_torch.pipeline import ops
+
+        cur = torch.from_numpy(frame).float()
+        fl = None if flow is None else torch.from_numpy(flow)
+
+        def advance(hist):
+            return cur if hist is None else ops.taa_step(cur, fl, hist, alpha=0.1, use_flow=fl is not None)
+
+        card = step.hist[key].cpu()
+        err = float((card - advance(self.card.get(key))).abs().max())
+        self.chain[key] = advance(self.chain.get(key))
+        self.card[key] = card
+        self.worst["taa_abs"] = max(self.worst["taa_abs"], err)
+        self.worst["taa_chain_drift"] = max(self.worst["taa_chain_drift"],
+                                            float((card - self.chain[key]).abs().max()))
+        if err > TAA_TOL:
+            raise AssertionError(f"render frame {self.frames}: TAA history '{key}' on the card is {err:.3e} from "
+                                 f"ops.taa_step(frame_i, flow_(i-1), hist_(i-1)) on the CPU")
+
+    def __call__(self, step, args, got):
+        from tpuflow_torch.pipeline import ops
+
+        frame, flow = args[0], args[1]
+        ext = args[2] if len(args) > 2 else None
+        enc = lambda f: ops.encode_flow(torch.from_numpy(f), step.width, step.height, step.flow_format,
+                                        step.clamp_range).numpy()
+        most = HSV_HUE_STEP if step.flow_format == "hsv" else 1
+        self.u8("the encoded flow", got["flow_viz"], enc(flow), most)
+        if step.taa:
+            self.taa("flow", step, frame, self.prev_flow)
+            self.taa("simple", step, frame, None)
+            if ext is not None:
+                self.taa("ext", step, frame, ext)
+                self.u8("the encoded external flow", got["ext_viz"], enc(ext), most)
+        self.prev_flow = flow
+        self.frames += 1
+
+
+def run_cli(kernels, argv, check=None) -> dict:
+    """tpuflow_torch.tools.cli.main(argv) in this process with the launch
+    counters zeroed just before and read just after, its stages clocked
+    (StageClock) and its standard output kept."""
+    import contextlib
+    import io
+
+    from tpuflow_torch.tools import cli
+    from tpuflow_torch.tools.pipeline import FlowPipeline
+
+    clock = StageClock(check)
+    text = io.StringIO()
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(text):
+            _, wall = timed_call(lambda: cli.main(argv))
+    finally:
+        clock.close()
+    res = {"wall_s": wall, "stages_s": clock.s, "launches": read_launches(kernels),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "stdout": text.getvalue()}
+    if clock.step_event_ms:
+        n = len(clock.step_event_ms)
+        res["render_step_device_ms"] = float(np.mean(clock.step_event_ms))
+        res["render_step_host_ms"] = float(np.mean(clock.step_host_ms))
+        res["render_compose_write_ms"] = (clock.s["render"] * 1e3 - sum(clock.step_host_ms)) / n
+    return res
+
+
+def check_cache(what, cache_dir, frames, direct, lods_expected=True) -> None:
+    """The cache of one computing run against a direct engine call on the
+    same frames: .npz flows bit for bit; .flo bytes equal to FlowFileHandler's
+    and the native cacheio's on those flows; every LOD file equal to
+    LODGenerator on the cached flow, and ops.generate_lods on the card within
+    1e-6 of it."""
+    import os
+    import tempfile
+
+    from tpuflow_torch.pipeline import ops
+    from tpuflow_torch.pipeline.cache import FlowCacheManager, FlowFileHandler, LODGenerator
+    from tpuflow_torch.runtime import cacheio
+
+    if not cacheio.available():
+        raise AssertionError("runtime/cacheio: the native library did not build (g++)")
+    mgr = FlowCacheManager()
+    worst_lod = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(len(frames)):
+            flow = mgr.load_cached_flow(cache_dir, i, "npz")
+            if not np.array_equal(flow, direct[i]):
+                raise AssertionError(f"{what}: cached flow {i} differs from the direct engine call by "
+                                     f"{np.abs(flow - direct[i]).max()}")
+            flo = open(os.path.join(cache_dir, f"flow_frame_{i:06d}.flo"), "rb").read()
+            FlowFileHandler.save_flow_flo(direct[i], os.path.join(tmp, "numpy.flo"))
+            cacheio.write_flo(os.path.join(tmp, "native.flo"), direct[i])
+            for name in ("numpy.flo", "native.flo"):
+                if open(os.path.join(tmp, name), "rb").read() != flo:
+                    raise AssertionError(f"{what}: flow_frame_{i:06d}.flo differs from {name}")
+            if not lods_expected:
+                continue
+            ref = LODGenerator.generate_lods(flow)
+            dev = ops.generate_lods(torch.from_numpy(flow).cuda())
+            for lvl in range(len(ref)):
+                got = mgr.load_flow_lod(cache_dir, i, lvl)
+                if not np.array_equal(got, ref[lvl]):
+                    raise AssertionError(f"{what}: LOD {lvl} of frame {i} differs from LODGenerator")
+                worst_lod = max(worst_lod, float(np.abs(dev[lvl].cpu().numpy() - got).max()))
+    if worst_lod > 1e-6:
+        raise AssertionError(f"{what}: ops.generate_lods on the card is {worst_lod} from the LOD files")
+    log(f"pipeline {what}: {len(frames)} cached flows bit-equal to the direct engine call, .flo bytes equal to "
+        f"FlowFileHandler's and the native cacheio's, LODs equal to LODGenerator, ops.generate_lods on the card "
+        f"within {worst_lod:.1e}")
+
+
+def check_video(what, path, n, w, h) -> None:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    shapes = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        shapes.append(f.shape)
+    cap.release()
+    if shapes != [(h, w, 3)] * n:
+        raise AssertionError(f"{what}: the output video {path} decodes to {len(shapes)} frames of "
+                             f"{set(shapes)}, expected {n} of {w}x{h}")
+
+
+def cli_summary(what, res, n) -> dict:
+    s = res["stages_s"]
+    out = {k: v for k, v in res.items() if k != "stdout"}
+    if "flows" in s:
+        out["flows_frames_per_s"] = n / s["flows"]
+        out["cache_write_thread_ms_per_frame"] = s.get("cache_write_thread", 0.0) * 1e3 / n
+    if "lods" in s:
+        out["lods_ms_per_frame"] = s["lods"] * 1e3 / n
+    log(f"pipeline {what}: CLI {res['wall_s']:.3f} s for {n} frames, stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in s.items())
+        + (f"; flows {out['flows_frames_per_s']:.4f} frames/s" if "flows_frames_per_s" in out else "")
+        + (f"; render per frame: device {res['render_step_device_ms']:.2f} ms (events), host step "
+           f"{res['render_step_host_ms']:.2f} ms, compose+write {res['render_compose_write_ms']:.2f} ms"
+           if "render_step_device_ms" in res else "")
+        + f"; peak {res['peak_gib']:.2f} GiB; launches {res['launches']}")
+    return out
+
+
+def profile_render_step(frames, cache_dir) -> dict:
+    """One warm RenderStep call at 1080p with TAA (the render's device work
+    for frame 2: uploads, encode, two TAA steps, fetches) under the
+    profiler: its wall time, the device's busy time and its largest
+    kernels."""
+    from tpuflow_torch.pipeline.cache import FlowCacheManager
+    from tpuflow_torch.tools.pipeline import RenderStep
+
+    mgr = FlowCacheManager()
+    flows = [mgr.load_cached_flow(cache_dir, i) for i in range(3)]
+    step = RenderStep(torch.device("cuda", torch.cuda.current_device()), frames.shape[2], frames.shape[1],
+                      "gamedev", 32.0, taa=True)
+    step(frames[0], flows[0])
+    step(frames[1], flows[1])
+    wall_ms, rows = device_profile(lambda: step(frames[2], flows[2]))
+    busy = sum(r[0] for r in rows)
+    log(f"render step profile (1080p, gamedev, TAA): wall {wall_ms:.2f} ms under the profiler, device busy "
+        f"{busy:.2f} ms = {100 * busy / wall_ms:.1f} %, {sum(r[1] for r in rows)} device calls")
+    for ms, count, key in rows[:8]:
+        log(f"  {ms:8.3f} ms {count:4d}x  {key[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "top": [[ms, count, key[:90]] for ms, count, key in rows[:8]]}
+
+
+def phase_pipeline(kernels, engine_fps: Optional[dict] = None) -> dict:
+    """The video pipeline and its CLI (tpuflow_torch.tools.cli.main, in this
+    process) on a synthetic 1920x1080 clip of PIPELINE_FRAMES frames at the
+    product configuration (Twins, 4 levels, radius 4, 12 iterations, T=5,
+    bf16, seeded random weights) with --allow-random-init --no-autoplay
+    --taa --save-flow both --uncompressed:
+    - --tile (compute_flows_tiled_stride1: K1 24 and K2 12 launches per
+      window); then the same cache re-rendered once per --flow-format
+      (a cache hit: the cache-hit message, no launch), the RG8 one as
+      --flow-only, whose video is then the --flow-input of a last rerun
+      (the 2x3 grid, three TAA histories); the render's device work of
+      every rerun checked against the CPU (RenderCheck);
+    - the CLI's default route, untiled with --batch-frames 4
+      (compute_flow_batch: K3 96 and K2 12 per batch of windows);
+    - --model memflow (stream_flows: K3 48 and K2 12 per frame);
+    each computing run's cache against a direct engine call on the same
+    frames (check_cache) and its video decoded (check_video), with the
+    stages' times (StageClock) and the peak device memory; and one
+    `python3 -m tpuflow_torch.tools.cli --show-tiles` with jax, flax and
+    tpuflow blocked, after importing every module of tpuflow_torch.
+    engine_fps: the engine phases' frames/s ({'tiled', 'memflow'}), kept
+    beside the CLI's."""
+    import glob
+    import os
+    import pkgutil
+    import tempfile
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError as exc:
+        raise AssertionError(f"pipeline: cv2 does not import ({exc}); decode, compose and write need it")
+    import tpuflow_torch
+    from tpuflow_torch.runtime.engine import FlowEngine
+    from tpuflow_torch.tools import cli
+    from tpuflow_torch.tools.pipeline import FlowPipeline
+
+    n, h, w = PIPELINE_FRAMES, MAIN_H, MAIN_W
+    out = {"frames": n, "shape": [h, w]}
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.avi")
+        frames = write_clip(clip, n, h, w, SEED + 21)
+        base = ["--input", clip, "--frames", str(n), "--allow-random-init", "--no-autoplay", "--uncompressed"]
+
+        def argv(route, *extra):
+            os.makedirs(os.path.join(tmp, route), exist_ok=True)
+            return base + ["--output", os.path.join(tmp, route), *extra]
+
+        def video_of(route):
+            (path,) = glob.glob(os.path.join(tmp, route, "*.avi"))
+            return path
+
+        def direct_engine(args):
+            """A FlowEngine of its own for the run's model, with the seed the
+            CLI's engine takes (0), and the run's cache directory."""
+            cfg = cli.args_to_config(cli.build_parser().parse_args(args))
+            engine = FlowEngine(cfg.model_config(), seed=0)
+            engine.load_model(allow_random_init=True)
+            return engine, FlowPipeline(cfg, engine).cache_dir_for(clip, 0, n)
+
+        # --tile, and its cache re-rendered.
+        args = argv("tile", "--tile", "--taa", "--save-flow", "both")
+        res = run_cli(kernels, args)
+        want = expected_launches(kernels, dense_lookup=n * 24, flash_attention_fwd=n * 12)
+        if res["launches"] != want:
+            raise AssertionError(f"pipeline --tile: kernel launches {res['launches']}, expected {want}")
+        out["tile"] = cli_summary("--tile", res, n)
+        out["tile"]["engine_frames_per_s"] = (engine_fps or {}).get("tiled")
+        engine, cache_dir = direct_engine(args)
+        direct, out["tile"]["direct_engine_s"] = timed_call(lambda: engine.compute_flows_tiled_stride1(frames))
+        check_cache("--tile", cache_dir, frames, direct)
+        check_video("--tile", video_of("tile"), n, 2 * w, 2 * h)
+        out["tile"]["render_step_profile"] = profile_render_step(frames, cache_dir)
+
+        reruns = {}
+        for fmt in PIPELINE_FORMATS:
+            extra = ["--flow-only"] if fmt == "motion-vectors-rg8" else ["--taa"]
+            if fmt != PIPELINE_FORMATS[0]:
+                extra.append("--skip-lods")              # the first rerun audits the LODs
+            check = RenderCheck()
+            res = run_cli(kernels, argv(f"rerun-{fmt}", "--tile", "--flow-format", fmt, *extra), check)
+            if f"Found existing optical flow cache: {cache_dir}" not in res["stdout"]:
+                raise AssertionError(f"pipeline rerun {fmt}: no cache-hit message")
+            if any(res["launches"].values()) or check.frames != n:
+                raise AssertionError(f"pipeline rerun {fmt}: launches {res['launches']} on a cache hit, "
+                                     f"{check.frames} frames rendered")
+            reruns[fmt] = {"wall_s": res["wall_s"], "stages_s": res["stages_s"], "render": check.worst}
+        flow_video = video_of("rerun-motion-vectors-rg8")
+        check_video("--flow-only rg8", flow_video, n, w, 2 * h)
+        check = RenderCheck()
+        res = run_cli(kernels, argv("flow-input", "--tile", "--taa", "--skip-lods", "--flow-input", flow_video,
+                                    "--flow-format", "motion-vectors-rg8"), check)
+        if any(res["launches"].values()) or check.frames != n or "ext" not in check.card:
+            raise AssertionError(f"pipeline --flow-input: launches {res['launches']}, {check.frames} frames checked")
+        check_video("--flow-input", video_of("flow-input"), n, 2 * w, 3 * h)
+        reruns["flow-input"] = {"wall_s": res["wall_s"], "stages_s": res["stages_s"], "render": check.worst}
+        log(f"pipeline reruns of the --tile cache (cache hits, no launch; render on the card against the CPU): "
+            + json.dumps(reruns))
+        out["reruns"] = reruns
+
+        # The CLI's default route: untiled windows in batches of 4.
+        args = argv("untiled", "--taa", "--save-flow", "both", "--batch-frames", "4")
+        res = run_cli(kernels, args)
+        batches = -(-n // 4)
+        want = expected_launches(kernels, flash2_patch_level=batches * 96, flash_attention_fwd=batches * 12)
+        if res["launches"] != want:
+            raise AssertionError(f"pipeline untiled: kernel launches {res['launches']}, expected {want}")
+        out["untiled"] = cli_summary("untiled --batch-frames 4", res, n)
+        cache_dir = FlowPipeline(cli.args_to_config(cli.build_parser().parse_args(args)), engine).cache_dir_for(
+            clip, 0, n)
+        direct, out["untiled"]["direct_engine_s"] = timed_call(lambda: np.concatenate(
+            [engine.compute_flow_batch(frames, list(range(i, min(n, i + 4)))) for i in range(0, n, 4)]))
+        check_cache("untiled", cache_dir, frames, direct)
+        check_video("untiled", video_of("untiled"), n, 2 * w, 2 * h)
+        del engine
+        torch.cuda.empty_cache()
+
+        # --model memflow.
+        args = argv("memflow", "--model", "memflow", "--taa", "--save-flow", "both")
+        res = run_cli(kernels, args)
+        want = expected_launches(kernels, flash2_patch_level=n * 48, flash_attention_fwd=n * 12)
+        if res["launches"] != want:
+            raise AssertionError(f"pipeline --model memflow: kernel launches {res['launches']}, expected {want}")
+        out["memflow"] = cli_summary("--model memflow", res, n)
+        out["memflow"]["engine_frames_per_s"] = (engine_fps or {}).get("memflow")
+        engine, cache_dir = direct_engine(args)
+        direct, out["memflow"]["direct_engine_s"] = timed_call(lambda: engine.stream_flows(frames))
+        check_cache("--model memflow", cache_dir, frames, direct)
+        check_video("--model memflow", video_of("memflow"), n, 2 * w, 2 * h)
+        del engine
+        torch.cuda.empty_cache()
+
+        # The module entry, with jax and the JAX package blocked.
+        mods = [m.name for m in pkgutil.walk_packages(tpuflow_torch.__path__, "tpuflow_torch.")]
+        code = ("import sys, importlib, runpy\n"
+                "for name in ('jax', 'jaxlib', 'flax', 'tpuflow'):\n"
+                "    sys.modules[name] = None\n"
+                f"for m in {mods!r}:\n"
+                "    importlib.import_module(m)\n"
+                f"sys.argv = ['cli', '--input', {clip!r}, '--show-tiles']\n"
+                "runpy.run_module('tpuflow_torch.tools.cli', run_name='__main__')\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or "2 tiles of 960x1080" not in proc.stdout:
+            raise AssertionError(f"pipeline: the module entry with jax blocked exited {proc.returncode}: "
+                                 f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+        log(f"pipeline: {len(mods)} modules of tpuflow_torch import with jax, flax and tpuflow blocked; "
+            f"python3 -m tpuflow_torch.tools.cli --show-tiles: {proc.stdout.strip().splitlines()[1]}")
+    return out
+
+
 def kernel_counters() -> dict:
     """The six kernels' wrappers by name; each counts its launches."""
     from tpuflow_torch.kernels.bandlookup import band_patch_level
@@ -1941,6 +2417,7 @@ def main() -> int:
     cnn = phase_cnn(kernels, e2e["stages_ms"]["features_per_frame"])
     memflow = phase_memflow(kernels)
     parity = phase_parity(kernels)
+    pipeline = phase_pipeline(kernels, {"tiled": e2e["frames_per_s"], "memflow": memflow["frames_per_s"]})
 
     # Each kernel's launches on the path that runs it, counters zeroed just
     # before that path and read just after.
@@ -1964,7 +2441,7 @@ def main() -> int:
                     "untiled": untiled, "strided": strided, "formulations": forms,
                     "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
                     "bof": bof, "cnn": cnn, "memflow": memflow, "checked_build": checked,
-                    "parity_rel_err": parity}))
+                    "parity_rel_err": parity, "pipeline": pipeline}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,8 @@ from tpuflow.kernels.flashcorr import pad_f2_level
 from tpuflow.kernels.flashcorr2 import flash2_patch_level as jax_flash2_patch_level
 from tpuflow.kernels.flashcorr2 import pack_f2_level
 
+from tests.test_torch_port_model import one_torch_thread  # noqa: F401 (autouse)
+
 from tpuflow_torch.core import corr as tcorr
 from tpuflow_torch.core.mofnet import MOFNet
 from tpuflow_torch.kernels.bandlookup import band_patch_level

@@ -19,6 +19,8 @@ from tpuflow.core.corr import DenseCorrPyramid as JaxDense
 from tpuflow.core.corr import pyramid_level_dims
 from tpuflow.core.gma import flash_aggregate
 
+from tests.test_torch_port_model import one_torch_thread  # noqa: F401 (autouse)
+
 from tpuflow_torch.core.corr import DenseCorrPyramid, corr_feature_dim, make_corr
 from tpuflow_torch.kernels.denselookup import MAX_RADIUS, dense_lookup
 from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain

@@ -34,7 +34,7 @@ from tpuflow.runtime.convert import unflatten_params
 from tpuflow.runtime.engine import FlowEngine as JaxFlowEngine
 from tpuflow.runtime.windows import trailing_window_indices as jax_trailing
 from tests.mirrors.memflow_torch import MemFlowNetMirror
-from tests.test_torch_port_model import random_flax_params
+from tests.test_torch_port_model import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
 
 from tpuflow_torch.config import MEMFLOW_STAGE_CFG, ModelConfig, memflow_stage_cfg
 from tpuflow_torch.core.corr import DenseCorrPyramid, FlashCorr2

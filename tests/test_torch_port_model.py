@@ -39,6 +39,18 @@ CFG = dict(corr_levels=2, corr_radius=2, decoder_depth=2)
 H, W = 72, 88
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in each port test module (imported by
+    the others): the suite's workers share the machine's cores, and a
+    thread per core in each worker oversubscribes them many times over at
+    these small shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def random_flax_params(model, seed: int, h: int = H, w: int = W, example=None):
     """A flat flax param tree for `model` ('params/...' paths), drawn with
     numpy: kernels N(0, 1/fan_in), biases, LayerNorm and GroupNorm scales

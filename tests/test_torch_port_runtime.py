@@ -20,6 +20,8 @@ from tpuflow.core.padding import pad_dims as jax_pad_dims
 from tpuflow.runtime import tiles as jax_tiles
 from tpuflow.runtime.windows import centered_window_indices as jax_centered
 
+from tests.test_torch_port_model import one_torch_thread  # noqa: F401 (autouse)
+
 from tpuflow_torch.config import ModelConfig
 from tpuflow_torch.core.padding import pad_dims, pad_frames_edge
 from tpuflow_torch.runtime import tiles

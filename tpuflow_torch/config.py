@@ -1,13 +1,16 @@
-"""Model configuration (copy of tpuflow/config.py's ModelConfig and MemFlow
-stage table).
+"""Configuration (copy of tpuflow/config.py: ModelConfig, the MemFlow stage
+table and PipelineConfig).
 
-A frozen dataclass with the VideoFlow defaults: T=5 windows, 4 correlation
-levels, radius 4, 12 refinement iterations, Twins-SVT encoders.
+ModelConfig is a frozen dataclass with the VideoFlow defaults: T=5 windows,
+4 correlation levels, radius 4, 12 refinement iterations, Twins-SVT
+encoders.  PipelineConfig carries the CLI's flags.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 # Fast-mode model overrides (the reference's videoflow_core.py:91-94).
 FAST_DECODER_DEPTH = 6
@@ -91,3 +94,70 @@ class ModelConfig:
         if self.model == "videoflow":
             return f"VideoFlow_ckpt/{self.checkpoint_filename}"
         return f"MemFlow_ckpt/{self.checkpoint_filename}"
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Full pipeline configuration (copy of tpuflow/config.py's
+    PipelineConfig): the CLI's namespace, with the model's part built by
+    `model_config()`.  `device`: 'auto' or 'cuda' (the card), 'cpu'; 'tpu'
+    is refused (runtime/device.py DeviceManager)."""
+
+    input: str = ""
+    output: str = "results"
+    device: str = "auto"               # 'auto' | 'cuda' | 'cpu'
+    frames: int = 1000
+    start_frame: int = 0
+    start_time: Optional[float] = None
+    duration: Optional[float] = None
+    fast: bool = False
+    flow_only: bool = False
+    taa: bool = False
+    flow_input: Optional[str] = None
+    flow_format: str = "gamedev"
+    motion_vectors_clamp_range: float = 32.0
+    tile: bool = False
+    sequence_length: int = 5
+    save_flow: Optional[str] = None    # 'flo' | 'npz' | 'both'
+    force_recompute: bool = False
+    use_flow_cache: Optional[str] = None
+    interactive: bool = False
+    show_tiles: bool = False
+    no_autoplay: bool = True
+    skip_lods: bool = False
+    uncompressed: bool = False
+    model: str = "videoflow"
+    model_path: Optional[str] = None
+    stage: str = "sintel"
+    vf_dataset: str = "sintel"
+    vf_architecture: str = "mof"
+    vf_variant: str = "standard"
+    # Extensions of the reference CLI, as in the JAX package.
+    encoder: str = "twins"             # 'twins' (upstream weights) | 'cnn'
+    allow_random_init: bool = False    # run without a checkpoint (meaningless flows)
+    batch_frames: int = 1              # windows batched per device step
+    tile_overlap: int = 0              # halo blend of tiles (0 = reference hard paste)
+    data_parallel: int = 1             # devices to shard frames over
+    stride_mode: str = "center"        # 'center' (one middle flow per window) |
+                                       # 'interior' (every interior flow kept)
+
+    def model_config(self) -> ModelConfig:
+        kw = {}
+        if self.model == "memflow":
+            kw.update(memflow_stage_cfg(self.stage))
+        return ModelConfig(
+            model=self.model,
+            architecture=self.vf_architecture,
+            dataset=self.vf_dataset,
+            variant=self.vf_variant,
+            stage=self.stage,
+            encoder=self.encoder,
+            fast_mode=self.fast,
+            sequence_length=max(2, self.sequence_length)
+            if self.model == "memflow"
+            else self.sequence_length,
+            **kw,
+        )
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,6 +1,13 @@
-"""Device resolution for the port: CUDA unless the caller asks for the CPU."""
+"""Device resolution for the port: CUDA unless the caller asks for the CPU.
+
+`DeviceManager` is the JAX package's (tpuflow/runtime/device.py) on torch:
+'auto' and 'cuda' mean the card and raise without one (the JAX version
+falls back to the CPU with a warning), 'cpu' means the CPU, and 'tpu' is
+refused."""
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -27,3 +34,43 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+class DeviceManager:
+    """Resolve and describe compute devices (the reference's
+    config/device_manager.py contract)."""
+
+    @staticmethod
+    def get_device(requested: str = "auto") -> torch.device:
+        requested = (requested or "auto").lower()
+        if requested == "tpu":
+            raise ValueError("device 'tpu': this package runs on CUDA cards or the CPU ('auto', 'cuda', 'cpu')")
+        return resolve_device("cuda" if requested == "auto" else requested)
+
+    @staticmethod
+    def get_device_info(requested: str = "auto") -> Dict:
+        dev = DeviceManager.get_device(requested)
+        if dev.type == "cpu":
+            return {"device": "cpu", "device_count": 1, "devices": ["cpu"]}
+        n = torch.cuda.device_count()
+        memory = []
+        for i in range(n):
+            free, total = torch.cuda.mem_get_info(i)
+            memory.append({"bytes_in_use": total - free, "bytes_limit": total})
+        return {
+            "device": "cuda",
+            "device_count": n,
+            "devices": [f"cuda:{i} {torch.cuda.get_device_name(i)}" for i in range(n)],
+            "memory": memory,
+        }
+
+    @staticmethod
+    def print_device_info(requested: str = "auto") -> None:
+        info = DeviceManager.get_device_info(requested)
+        print(f"Device: {info['device']} x{info['device_count']}")
+        for d in info["devices"]:
+            print(f"  {d}")
+        for m in info.get("memory", []):
+            used = m["bytes_in_use"] / 1024**2
+            limit = m["bytes_limit"] / 1024**2
+            print(f"  memory: {used:.0f} / {limit:.0f} MB")

@@ -452,13 +452,22 @@ class FlowEngine:
         their T frames).  `window_batch` windows run as one batch (clamped,
         see _clamp_window_batch); a batch's flows are fetched and pasted
         after the next batch has been queued.  A clip whose frames fit one
-        tile, and a MemFlow clip, runs compute_flow per frame."""
+        tile, and a MemFlow clip, runs compute_flow per frame.
+        `progress_cb(i, flow)` is called with each frame's flow as it is
+        pasted, in frame order."""
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
         t = self.config.sequence_length
         if self.config.model == "memflow" or (h <= tile_size and w <= tile_size):
-            return np.stack([self.compute_flow_tiled(arr, i, tile_size, overlap) for i in range(n)])
+            # progress_cb as on the tiled route (the JAX engine calls none
+            # here, so its pipeline's --tile fails on such clips).
+            flows_out = np.empty((n, h, w, 2), np.float32)
+            for i in range(n):
+                flows_out[i] = self.compute_flow_tiled(arr, i, tile_size, overlap)
+                if progress_cb is not None:
+                    progress_cb(i, flows_out[i])
+            return flows_out
         wb = max(1, window_batch)
         if wb == 1 and os.environ.get("TPUFLOW_STRIDE1", "trio") == "pairs":
             # Slower in the JAX package's measurements (tpuflow/runtime/
