@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and fourteen deliberately broken, and prints for each copy whether each
+# and seventeen deliberately broken, and prints for each copy whether each
 # phase passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
@@ -36,7 +36,12 @@
 #   taaflow    tpuflow_torch/tools/pipeline.py: the render's TAA warps along
 #              the current frame's flow instead of the previous one's
 #                                         -> the pipeline phase fails
-# The unbroken copy must pass all eleven phases.  Needs one CUDA card and
+#   phaseunwrap tpuflow_torch/tools/correction.py: phase_correlate_batch
+#              without its Nyquist unwrap (peaks past the fold stay
+#              positive)                  -> the correction phase fails
+#   nccmean    correction.py: ncc_match_batch without the template's mean
+#              subtracted                 -> the correction phase fails
+# The unbroken copy must pass all twelve phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh                 # from the repository root
@@ -76,6 +81,7 @@ runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "uhd": lambda: cs.phase_uhd(engine, kernels),
         "memflow": lambda: cs.phase_memflow(cs.kernel_counters()),
         "pipeline": lambda: cs.phase_pipeline(cs.kernel_counters()),
+        "correction": lambda: cs.phase_correction(cs.kernel_counters()),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
         "k3": lambda: cs.check_corr_patch(dev, *k3),
         "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band")}
@@ -94,7 +100,7 @@ for name in phases:
 
 status=0
 copies=${*:-unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
-                k1stride tilebatch readermask taaflow}
+                k1stride tilebatch readermask taaflow phaseunwrap nccmean}
 for copy in $copies; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
@@ -103,7 +109,7 @@ for copy in $copies; do
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline,correction ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -134,11 +140,15 @@ for copy in $copies; do
                    sed -i '/sim.masked_fill_(invalid\[i\], -1e9)/d' $edited ;;
         taaflow)   phases=pipeline; edited=tpuflow_torch/tools/pipeline.py
                    sed -i 's/out\["taa_frame"\] = self._advance("flow", frame_f32, self.prev_flow)/out["taa_frame"] = self._advance("flow", frame_f32, flow_t)/' $edited ;;
+        phaseunwrap) phases=correction; edited=tpuflow_torch/tools/correction.py
+                   sed -i 's|torch.where(px > w // 2, px - w, px).float()|px.float()|; s|torch.where(py > h // 2, py - h, py).float()|py.float()|' $edited ;;
+        nccmean)   phases=correction; edited=tpuflow_torch/tools/correction.py
+                   sed -i 's/^    tz = template - tmean$/    tz = template/' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|^correction|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

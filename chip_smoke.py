@@ -80,7 +80,22 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    stages' host times, the render's device time per frame (CUDA events) and
    each route's peak memory; and `python3 -m tpuflow_torch.tools.cli
    --show-tiles` with jax and the JAX package blocked.
-15. checked build, in a child process started before phase 2 (this script
+15. correction: the CLI's --interactive --tile on a fresh 3-frame 1920x1080
+   clip, without a display and under torch's default TF32 flags: it computes
+   the flows (K1 24 and K2 12 launches per window, counters zeroed before
+   and read after), audits the LODs, builds tools/visualizer.FlowInspector
+   on the card and returns 1 with the cache statistics; then on the card,
+   over that cache: the quality and turbulence maps, analyze_pixel,
+   detail_analysis and consistency_check (consistent) at two bad pixels,
+   correct_range over every frame at the JAX package's defaults (65536
+   pixels at most, region 50, template radius 11, search radius 50) with
+   each pass's pixels, device and host time and each frame's peak memory,
+   one frame's correction (4096 pixels) traced with device_trace; the
+   NCC against cv2.matchTemplate (one channel) and a float64 numpy
+   reference (three) at full size, phase correlation and the coarse pass on
+   a known 1080p translation, and both passes on the card against the CPU
+   on 512 bad pixels where their peaks are clear.
+16. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
    with its bounds guards (kernels/_build.py, checked=True), each of the six
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
@@ -942,6 +957,20 @@ def stage_times(engine, frames: np.ndarray):
     return out, enc
 
 
+def profile_rows(prof) -> list:
+    """[(device ms, launches, kernel name)] of a torch.profiler run, largest
+    first."""
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def device_profile(fn):
     """(host wall ms, [(device ms, launches, kernel name)] largest first) of
     one synchronized call of fn under torch.profiler."""
@@ -953,15 +982,7 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    return wall_ms, rows
+    return wall_ms, profile_rows(prof)
 
 
 def profile_refine(model, enc, *args) -> dict:
@@ -2083,10 +2104,10 @@ def run_cli(kernels, argv, check=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     try:
         with contextlib.redirect_stdout(text):
-            _, wall = timed_call(lambda: cli.main(argv))
+            rc, wall = timed_call(lambda: cli.main(argv))
     finally:
         clock.close()
-    res = {"wall_s": wall, "stages_s": clock.s, "launches": read_launches(kernels),
+    res = {"rc": rc, "wall_s": wall, "stages_s": clock.s, "launches": read_launches(kernels),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "stdout": text.getvalue()}
     if clock.step_event_ms:
         n = len(clock.step_event_ms)
@@ -2348,6 +2369,436 @@ def phase_pipeline(kernels, engine_fps: Optional[dict] = None) -> dict:
     return out
 
 
+CORRECTION_FRAMES = 3            # frames of the 1080p clip --interactive computes and then corrects
+NCC_PAIRS = 16                   # full-size (100x100 search, 22x22 template) pairs of each NCC known answer
+NCC_TOL = 1e-4
+KNOWN_SHIFT = (-7, 5)            # the integer translation of the known-answer texture (content moves by it)
+KNOWN_SOURCES = 65536            # interior sources of the known-translation check: the correction's cap
+SHIFT_TOL = 0.05
+SHIFT_SHARE = 0.99
+PARITY_SOURCES = 512             # bad pixels of a 1080p pair run through both passes on the card and the CPU
+# A response's peak is clear when it leads the second-highest entry by this
+# much (or the response is 0 everywhere: a region wholly outside the frame,
+# whose first entry wins on both devices); only clear peaks are compared.
+PEAK_MARGIN = {"phase": 1e-4, "ncc": 1e-5}
+PARITY_FLOW_TOL = 1e-3
+PARITY_SIM_TOL = 1e-5
+TRACE_PIXELS = 4096              # the cap of the traced frame (see trace_correction)
+
+
+class CorrectionClock:
+    """Times tools/correction.py's correct_frame and its coarse and fine
+    passes by wrapping the module's functions (restored by close()): for each
+    frame the pixels of each pass, each pass's device time (CUDA events) and
+    host time (synchronized), the frame's host time, the rest of it (the host
+    steps and quality maps) and its peak device memory."""
+
+    NAMES = ("correct_frame", "coarse_correction_batch", "fine_correction_batch")
+
+    def __init__(self):
+        import inspect
+
+        from tpuflow_torch.tools import correction as corr
+
+        self.corr = corr
+        self.orig = {name: getattr(corr, name) for name in self.NAMES}
+        self.cap = inspect.signature(corr.correct_frame).parameters["max_pixels"].default
+        self.frames = []
+        self.current = {}
+        for name in self.NAMES[1:]:
+            setattr(corr, name, self._pass(name))
+        corr.correct_frame = self._frame
+
+    def _pass(self, name):
+        fn = self.orig[name]
+
+        def timed(*args, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            self.current[name] = {"n": int(args[2].shape[0]), "ms": e0.elapsed_time(e1),
+                                  "host_ms": (time.perf_counter() - t0) * 1e3}
+            return out
+
+        return timed
+
+    def _frame(self, *args, **kw):
+        self.current = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = self.orig["correct_frame"](*args, **kw)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        none = {"n": 0, "ms": 0.0, "host_ms": 0.0}
+        coarse = self.current.get("coarse_correction_batch", none)
+        fine = self.current.get("fine_correction_batch", none)
+        self.frames.append({
+            "bad": res["initial_errors"], "capped": min(res["initial_errors"], kw.get("max_pixels", self.cap)),
+            "coarse_n": coarse["n"], "fine_n": fine["n"],
+            "coarse_ms": coarse["ms"], "coarse_host_ms": coarse["host_ms"],
+            "fine_ms": fine["ms"], "fine_host_ms": fine["host_ms"],
+            "rest_host_ms": total - coarse["host_ms"] - fine["host_ms"], "frame_host_ms": total,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "initial_errors": res["initial_errors"], "final_errors": res["final_errors"],
+        })
+        return res
+
+    def close(self) -> None:
+        for name, fn in self.orig.items():
+            setattr(self.corr, name, fn)
+
+
+def ncc_reference(search: np.ndarray, template: np.ndarray) -> np.ndarray:
+    """TM_CCOEFF_NORMED with one mean over the template's channels (the
+    JAX package's formula), in float64 numpy: window sums from integral
+    images, the numerator as an einsum over sliding windows."""
+    n, s, _, c = search.shape
+    t = template.shape[1]
+    o = s - t + 1
+    search, template = search.astype(np.float64), template.astype(np.float64)
+    tz = template - template.mean(axis=(1, 2, 3), keepdims=True)
+    win = np.lib.stride_tricks.sliding_window_view(search, (t, t), axis=(1, 2))     # [n, o, o, c, t, t]
+    num = np.einsum("noqcyx,nyxc->noq", win, tz)
+
+    def box(x):
+        ii = np.pad(x.sum(-1).cumsum(1).cumsum(2), ((0, 0), (1, 0), (1, 0)))
+        return ii[:, t:, t:] - ii[:, :o, t:] - ii[:, t:, :o] + ii[:, :o, :o]
+
+    ssum, ssq = box(search), box(search**2)
+    denom = np.sqrt(np.maximum(ssq - ssum**2 / (t * t * c), 0)) * np.sqrt((tz**2).sum(axis=(1, 2, 3)))[:, None, None]
+    return np.where(denom > 1e-6, num / np.maximum(denom, 1e-30), 0.0)
+
+
+def check_ncc_known_answers(dev) -> dict:
+    """ncc_match_batch on the card at the correction's full size, under the
+    phase's TF32 flags: one channel against cv2.matchTemplate's
+    TM_CCOEFF_NORMED (which subtracts each channel's own mean, so only C = 1
+    shares the formula) and three channels against ncc_reference, each on
+    NCC_PAIRS pairs within NCC_TOL: 0-255 noise search areas, templates cut
+    from them at varying offsets, half with noise added."""
+    import cv2
+
+    from tpuflow_torch.tools import correction as corr
+
+    rng = np.random.default_rng(SEED + 33)
+    s, t = 2 * corr.SEARCH_RADIUS, 2 * corr.TEMPLATE_RADIUS
+    out = {}
+    for c in (1, 3):
+        search = rng.integers(0, 256, (NCC_PAIRS, s, s, c)).astype(np.float32)
+        oy, ox = rng.integers(0, s - t, NCC_PAIRS), rng.integers(0, s - t, NCC_PAIRS)
+        template = np.stack([search[i, oy[i]:oy[i] + t, ox[i]:ox[i] + t] for i in range(NCC_PAIRS)])
+        template[NCC_PAIRS // 2:] += rng.normal(0, 12, template[NCC_PAIRS // 2:].shape).astype(np.float32)
+        got = corr.ncc_match_batch(torch.from_numpy(search).to(dev), torch.from_numpy(template).to(dev)).cpu().numpy()
+        if c == 1:
+            ref = np.stack([cv2.matchTemplate(search[i, ..., 0], template[i, ..., 0], cv2.TM_CCOEFF_NORMED)
+                            for i in range(NCC_PAIRS)])
+        else:
+            ref = ncc_reference(search, template)
+        err = float(np.abs(got - ref).max())
+        hits = sum(np.unravel_index(got[i].argmax(), got[i].shape) == (oy[i], ox[i]) for i in range(NCC_PAIRS))
+        out[f"c{c}"] = {"max_abs_err": err, "argmax_at_cut": int(hits)}
+        if err > NCC_TOL or hits < NCC_PAIRS // 2:
+            raise AssertionError(f"ncc_match_batch (C = {c}) on the card is {err:.3e} from "
+                                 f"{'cv2.matchTemplate' if c == 1 else 'ncc_reference'}; "
+                                 f"{hits}/{NCC_PAIRS} peaks at the template's cut")
+    log(f"correction NCC known answers ({NCC_PAIRS} pairs of {s}x{s} / {t}x{t} each, TF32 flags at torch's defaults): "
+        f"C=1 vs cv2.matchTemplate {out['c1']['max_abs_err']:.2e}, C=3 vs float64 numpy "
+        f"{out['c3']['max_abs_err']:.2e} (tolerance {NCC_TOL})")
+    return out
+
+
+def check_known_translation(dev) -> dict:
+    """phase_correlate_batch and coarse_correction_batch on a 1920x1080 pair
+    whose second frame is the first moved by KNOWN_SHIFT, a texture of
+    period 100 = the regions' side (so that every interior region of frame 2
+    is a circular shift of frame 1's, as the FFT assumes), at KNOWN_SOURCES
+    interior sources: the regions at the same center give the shift, and the
+    coarse pass from LOD flows off by up to 10 px in each direction gives the
+    flow, each within SHIFT_TOL on at least SHIFT_SHARE of the sources.  The
+    same on a texture of white noise (no period), logged and not gated: the
+    regions' non-shared borders bias the 5x5 centroid there."""
+    from tpuflow_torch.tools import correction as corr
+
+    h, w = MAIN_H, MAIN_W
+    dx, dy = KNOWN_SHIFT
+    flow = torch.tensor([-dx, -dy], dtype=torch.float32, device=dev)       # target = source - flow
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+    rng = np.random.default_rng(SEED + 35)
+    margin = corr.DETAIL_ANALYSIS_REGION_SIZE + 20
+    src = torch.from_numpy(np.stack([rng.integers(margin, w - margin, KNOWN_SOURCES),
+                                     rng.integers(margin, h - margin, KNOWN_SOURCES)], -1).astype(np.int32)).to(dev)
+    lod = flow + torch.from_numpy(rng.integers(-10, 11, (KNOWN_SOURCES, 2)).astype(np.float32)).to(dev)
+    out = {}
+    for kind in ("periodic", "white"):
+        if kind == "periodic":
+            tile = torch.randint(0, 256, (100, 100, 3), generator=g, device=dev, dtype=torch.uint8)
+            tex = tile.repeat((h + 40) // 100 + 1, (w + 40) // 100 + 1, 1)[: h + 40, : w + 40]
+        else:
+            tex = torch.randint(0, 256, (h + 40, w + 40, 3), generator=g, device=dev, dtype=torch.uint8)
+        f1 = tex[20 : 20 + h, 20 : 20 + w].contiguous()
+        f2 = tex[20 - dy : 20 - dy + h, 20 - dx : 20 - dx + w].contiguous()      # f2[y, x] = f1[y - dy, x - dx]
+        r = corr.DETAIL_ANALYSIS_REGION_SIZE
+        g1, g2 = corr.to_gray(f1.float()), corr.to_gray(f2.float())
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        shift, _ = corr.phase_correlate_batch(corr.extract_regions(g1, src[:, 0], src[:, 1], r),
+                                              corr.extract_regions(g2, src[:, 0], src[:, 1], r))
+        e[1].record()
+        coarse = corr.coarse_correction_batch(f1, f2, src, lod)
+        e[2].record()
+        torch.cuda.synchronize()
+        shift_err = (shift - torch.tensor([dx, dy], dtype=torch.float32, device=dev)).abs().amax(-1)
+        flow_err = (coarse["flow"] - flow).abs().amax(-1)
+        out[kind] = {"shift_share": float((shift_err <= SHIFT_TOL).float().mean()),
+                     "shift_max_err": float(shift_err.max()),
+                     "coarse_share": float((flow_err <= SHIFT_TOL).float().mean()),
+                     "coarse_max_err": float(flow_err.max()),
+                     "phase_ms": e[0].elapsed_time(e[1]), "coarse_ms": e[1].elapsed_time(e[2])}
+        del f1, f2, g1, g2, tex, shift, coarse
+    p = out["periodic"]
+    log(f"correction known translation {KNOWN_SHIFT} at {KNOWN_SOURCES} interior sources of 1080p: "
+        + json.dumps(out))
+    if p["shift_share"] < SHIFT_SHARE or p["coarse_share"] < SHIFT_SHARE:
+        raise AssertionError(f"known translation: phase_correlate_batch within {SHIFT_TOL} px on "
+                             f"{p['shift_share']:.4f} of sources, coarse_correction_batch on {p['coarse_share']:.4f} "
+                             f"(need {SHIFT_SHARE})")
+    return out
+
+
+def peak_margins(resp: torch.Tensor):
+    """(top - second entry, response all zero) of each row of [N, ...]."""
+    top2 = resp.reshape(resp.shape[0], -1).topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).numpy(), (resp.reshape(resp.shape[0], -1) == 0).all(-1).numpy()
+
+
+def check_correction_card_vs_cpu(f1: np.ndarray, f2: np.ndarray, flow: np.ndarray, lod: np.ndarray) -> dict:
+    """Both passes on PARITY_SOURCES bad pixels of a 1080p pair (the LOD
+    vectors as correct_frame takes them) on the card and on the CPU, the fine
+    pass from the CPU's coarse targets on both: flows within PARITY_FLOW_TOL
+    and similarities within PARITY_SIM_TOL, and the fine pass's integer
+    targets equal, on pixels whose peak is clear (PEAK_MARGIN; the CPU's own
+    response decides), and, for the coarse pass, whose target is not within
+    PARITY_FLOW_TOL of a pixel edge (its truncation picks the pixel that the
+    similarity reads).  Counts what each rule leaves out."""
+    from tpuflow_torch.pipeline import ops
+    from tpuflow_torch.tools import correction as corr
+
+    h, w = f1.shape[:2]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    qf = ops.quality_frame(*(torch.from_numpy(x) for x in (f1, f2, flow))).numpy()
+    bad_y, bad_x = np.where(qf[:, :, 0] > 0)
+    pick = np.random.default_rng(SEED + 36).choice(len(bad_y), min(PARITY_SOURCES, len(bad_y)), replace=False)
+    by, bx = bad_y[pick], bad_x[pick]
+    lh, lw = lod.shape[:2]
+    lodv = (lod[np.clip((by * lh) // h, 0, lh - 1), np.clip((bx * lw) // w, 0, lw - 1)]
+            / np.array([lw / w, lh / h])).astype(np.float32)
+    src = np.stack([bx, by], -1).astype(np.int32)
+    cpu = [torch.from_numpy(x) for x in (f1, f2, src, lodv)]
+    card = [x.to(dev) for x in cpu]
+    res = {"sources": len(src)}
+    c_cpu = {k: v.numpy() for k, v in corr.coarse_correction_batch(*cpu).items()}
+    c_card = {k: v.cpu().numpy() for k, v in corr.coarse_correction_batch(*card).items()}
+    r = corr.DETAIL_ANALYSIS_REGION_SIZE
+    g1, g2 = corr.to_gray(cpu[0].float()), corr.to_gray(cpu[1].float())
+    lt = cpu[2].float() - cpu[3]
+    a = corr.extract_regions(g1, cpu[2][:, 0], cpu[2][:, 1], r)
+    b = corr.extract_regions(g2, corr._int32(lt[:, 0]), corr._int32(lt[:, 1]), r)
+    fa, fb = torch.fft.rfft2(a), torch.fft.rfft2(b)
+    cross = torch.conj(fa) * fb
+    margin, flat = peak_margins(torch.fft.irfft2(cross / cross.abs().clamp(min=1e-10), s=(2 * r, 2 * r)))
+    frac = np.abs(c_cpu["target"] - np.round(c_cpu["target"])).min(-1)
+    clear = (margin > PEAK_MARGIN["phase"]) | flat
+    ok = clear & (frac > PARITY_FLOW_TOL)
+    res["coarse"] = {"unclear_peak": int((~clear).sum()), "at_pixel_edge": int((clear & ~ok).sum()),
+                     "flow_max_err": float(np.abs(c_card["flow"] - c_cpu["flow"])[ok].max(initial=0)),
+                     "similarity_max_err": float(np.abs(c_card["similarity"] - c_cpu["similarity"])[ok].max(initial=0)),
+                     "integer_targets_equal": bool((np.trunc(c_card["target"]) == np.trunc(c_cpu["target"]))[ok].all())}
+    tgt = torch.from_numpy(c_cpu["target"])
+    f_cpu = {k: v.numpy() for k, v in corr.fine_correction_batch(cpu[0], cpu[1], cpu[2], tgt).items()}
+    f_card = {k: v.cpu().numpy() for k, v in corr.fine_correction_batch(card[0], card[1], card[2], tgt.to(dev)).items()}
+    tr, sr = corr.TEMPLATE_RADIUS, corr.SEARCH_RADIUS
+    resp = corr.ncc_match_batch(corr.extract_regions(cpu[1].float(), corr._int32(tgt[:, 0]), corr._int32(tgt[:, 1]), sr),
+                                corr.extract_regions(cpu[0].float(), cpu[2][:, 0], cpu[2][:, 1], tr))
+    margin, flat = peak_margins(resp)
+    ok = (margin > PEAK_MARGIN["ncc"]) | flat
+    res["fine"] = {"unclear_peak": int((~ok).sum()),
+                   "flow_max_err": float(np.abs(f_card["flow"] - f_cpu["flow"])[ok].max(initial=0)),
+                   "similarity_max_err": float(np.abs(f_card["similarity"] - f_cpu["similarity"])[ok].max(initial=0)),
+                   "integer_targets_equal": bool((f_card["target"] == f_cpu["target"])[ok].all()),
+                   "confidence_max_err": float(np.abs(f_card["confidence"] - f_cpu["confidence"])[ok].max(initial=0))}
+    log(f"correction card vs CPU on {len(src)} bad pixels of a 1080p pair: " + json.dumps(res))
+    for p in ("coarse", "fine"):
+        q = res[p]
+        if (q["flow_max_err"] > PARITY_FLOW_TOL or q["similarity_max_err"] > PARITY_SIM_TOL
+                or not q["integer_targets_equal"]):
+            raise AssertionError(f"correction {p} pass: the card differs from the CPU on clear peaks: {q}")
+    return res
+
+
+def trace_correction(dev, f1, f2, flow, lod) -> dict:
+    """One frame's correct_frame, capped at TRACE_PIXELS, under
+    runtime/profiling.device_trace: its wall time under the profiler, the
+    device's busy time, the trace file and the largest kernels.  The trace's
+    events grow with the pixels (36 000 at 4096 on an H100), and at the full
+    cap parsing them took more than 4 minutes, so the trace takes 4096."""
+    import os
+    import tempfile
+
+    from tpuflow_torch.runtime.profiling import device_trace
+    from tpuflow_torch.tools import correction as corr
+
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_trace(logdir) as prof:
+            corr.correct_frame(f1, f2, flow, lod, max_pixels=TRACE_PIXELS, device=dev)
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+        files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        size = os.path.getsize(files[0]) if len(files) == 1 else None
+    rows = profile_rows(prof)
+    busy = sum(r[0] for r in rows)
+    if not rows or size is None:
+        raise AssertionError(f"device_trace: {len(rows)} device kernels, trace files {files}")
+    log(f"correction trace of frame 0 at {TRACE_PIXELS} pixels (device_trace): wall {traced_ms:.1f} ms with the "
+        f"trace written, device busy "
+        f"{busy:.1f} ms, trace {size} bytes")
+    for ms, count, key in rows[:10]:
+        log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} % {count:5d}x  {key[:100]}")
+    return {"wall_ms": traced_ms, "device_busy_ms": busy, "trace_bytes": size,
+            "top": [[ms, count, key[:100]] for ms, count, key in rows[:10]]}
+
+
+def phase_correction(kernels) -> dict:
+    """The CLI's --interactive --tile (tools/visualizer.launch_interactive)
+    on a fresh synthetic 1920x1080 clip of CORRECTION_FRAMES frames, in this
+    process, without a display and under torch's default TF32 flags: the
+    cache is missing, so it computes the flows (K1 24 and K2 12 launches per
+    window), audits the LODs, builds FlowInspector on the card and returns 1
+    with the cache statistics.  Then, over that cache, on the card: the
+    quality and turbulence maps, analyze_pixel, detail_analysis and
+    consistency_check (which must report consistent) at two bad pixels,
+    correct_range over every frame at the JAX package's defaults (every pass
+    timed, CorrectionClock), check_correction_card_vs_cpu on frame 0's
+    pair, the known answers (check_ncc_known_answers,
+    check_known_translation), and frame 0's correction traced
+    (trace_correction)."""
+    import ast
+    import os
+    import tempfile
+
+    from tpuflow_torch.tools import correction as corr
+    from tpuflow_torch.tools import visualizer
+
+    n, h, w = CORRECTION_FRAMES, MAIN_H, MAIN_W
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"frames": n, "shape": [h, w]}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    # torch's own defaults, as a user's process has them: the correction
+    # pins its own precision.
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    display = os.environ.pop("DISPLAY", None)
+    built = []
+
+    class RecordedInspector(visualizer.FlowInspector):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+    original = visualizer.FlowInspector
+    visualizer.FlowInspector = RecordedInspector
+    clock = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = os.path.join(tmp, "clip.avi")
+            write_clip(clip, n, h, w, SEED + 31)
+            os.makedirs(os.path.join(tmp, "out"))
+            res = run_cli(kernels, ["--input", clip, "--frames", str(n), "--output", os.path.join(tmp, "out"),
+                                    "--tile", "--interactive", "--allow-random-init", "--no-autoplay",
+                                    "--uncompressed"])
+            text = res["stdout"]
+            want = expected_launches(kernels, dense_lookup=n * 24, flash_attention_fwd=n * 12)
+            if res["launches"] != want:
+                raise AssertionError(f"--interactive --tile: kernel launches {res['launches']}, expected {want}")
+            for marker in (f"Cache incomplete ({n} frames missing)", "--- LOD Cache Statistics ---",
+                           "Cannot start Tk visualizer", "Cache statistics: "):
+                if marker not in text:
+                    raise AssertionError(f"--interactive: no '{marker}' in its output")
+            stats = ast.literal_eval(text.split("Cache statistics: ")[1].splitlines()[0])
+            if res["rc"] != 1 or len(built) != 1 or built[0].device.type != "cuda" or stats["frames"] != n \
+                    or not stats["complete_lods"]:
+                raise AssertionError(f"--interactive: returned {res['rc']}, {len(built)} inspectors "
+                                     f"({[str(b.device) for b in built]}), statistics {stats}")
+            ins = built[0]
+            out["cli"] = {k: v for k, v in cli_summary("--interactive --tile", res, n).items()
+                          if k in ("wall_s", "stages_s", "launches", "peak_gib", "rc")}
+            out["cli"]["cache_statistics"] = stats
+
+            # The inspector's analyses on the card.
+            qm, t_q = timed_call(lambda: ins.quality_map(0))
+            tm, t_t = timed_call(lambda: ins.turbulence_map(0))
+            bad = np.argwhere(qm[:, :, 0] > 0)
+            if qm.shape != (h, w, 3) or tm.shape != (h, w, 3) or not len(bad):
+                raise AssertionError(f"inspector maps: {qm.shape}, {tm.shape}, {len(bad)} bad pixels")
+            times = {"quality_map_ms": t_q * 1e3, "turbulence_map_ms": t_t * 1e3}
+            centre = bad[np.abs(bad - [h // 2, w // 2]).sum(1).argmin()]
+            worst = bad[qm[bad[:, 0], bad[:, 1], 0].argmax()]
+            for name, (y, x) in (("centre", centre), ("worst", worst)):
+                ap, t_a = timed_call(lambda: ins.analyze_pixel(0, int(x), int(y)))
+                da, t_d = timed_call(lambda: ins.detail_analysis(0, int(x), int(y)))
+                cc, t_c = timed_call(lambda: ins.consistency_check(0, int(x), int(y)))
+                if not cc["consistent"] or not np.isfinite(da["corrected_flow"]).all():
+                    raise AssertionError(f"inspector at {name} pixel ({x}, {y}): consistency {cc['consistent']} "
+                                         f"(target delta {cc['target_delta']}), corrected flow {da['corrected_flow']}")
+                times[name] = {"pixel": [int(x), int(y)], "analyze_pixel_ms": t_a * 1e3,
+                               "detail_analysis_ms": t_d * 1e3, "consistency_check_ms": t_c * 1e3,
+                               "fine": ap["fine"] is not None,
+                               "corrected_similarity": da["corrected_similarity"]}
+            out["inspector"] = times
+            out["bad_share_frame0"] = float(len(bad) / (h * w))
+            log(f"correction inspector on the card: {json.dumps(times)}; bad pixels of frame 0: {len(bad)}")
+
+            # Every frame corrected at the defaults, each pass timed.
+            clock = CorrectionClock()
+            results, wall = timed_call(lambda: ins.correct_range(0, n, progress=False))
+            clock.close()
+            frames_log, clock = clock.frames, None
+            if len(results) != n or len(frames_log) != n:
+                raise AssertionError(f"correct_range: {len(results)} results, {len(frames_log)} frames timed")
+            for i, r in enumerate(results):
+                saved = corr.FlowFileHandler.load_flow_npz(r["path"])["flow"]
+                if saved.shape != (h, w, 2) or not np.isfinite(saved).all() or not np.array_equal(saved, r["flow"]):
+                    raise AssertionError(f"correct_range frame {i}: {r['path']} holds {saved.shape}, finite "
+                                         f"{np.isfinite(saved).all()}, equal to the result "
+                                         f"{np.array_equal(saved, r['flow'])}")
+                log(f"correction frame {i}: " + json.dumps(frames_log[i]))
+            out["correct_range"] = {"wall_s": wall, "frames": frames_log}
+
+            lod = ins.lod_cache.get((0, 4))
+            pair = (ins.frames[0], ins.frames[1], ins.load_flow(0), lod)
+            out["parity"] = check_correction_card_vs_cpu(*pair[:3], lod if lod is not None else pair[2])
+            del ins, built[:]
+        torch.cuda.empty_cache()
+        out["ncc_known"] = check_ncc_known_answers(dev)
+        out["known_translation"] = check_known_translation(dev)
+        out["trace"] = trace_correction(dev, *pair)
+    finally:
+        if clock is not None:
+            clock.close()
+        visualizer.FlowInspector = original
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        if display is not None:
+            os.environ["DISPLAY"] = display
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_counters() -> dict:
     """The six kernels' wrappers by name; each counts its launches."""
     from tpuflow_torch.kernels.bandlookup import band_patch_level
@@ -2418,6 +2869,7 @@ def main() -> int:
     memflow = phase_memflow(kernels)
     parity = phase_parity(kernels)
     pipeline = phase_pipeline(kernels, {"tiled": e2e["frames_per_s"], "memflow": memflow["frames_per_s"]})
+    correction = phase_correction(kernels)
 
     # Each kernel's launches on the path that runs it, counters zeroed just
     # before that path and read just after.
@@ -2441,7 +2893,7 @@ def main() -> int:
                     "untiled": untiled, "strided": strided, "formulations": forms,
                     "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
                     "bof": bof, "cnn": cnn, "memflow": memflow, "checked_build": checked,
-                    "parity_rel_err": parity, "pipeline": pipeline}))
+                    "parity_rel_err": parity, "pipeline": pipeline, "correction": correction}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

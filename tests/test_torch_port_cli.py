@@ -18,6 +18,7 @@ rendered by the port from the JAX run's cache within 1 of the JAX video's
 ulps, which may move a truncation by one).
 """
 
+import ast
 import dataclasses
 import os
 import shutil
@@ -36,10 +37,12 @@ cv2 = pytest.importorskip("cv2")
 from tpuflow.config import PipelineConfig as JaxPipelineConfig
 from tpuflow.core import memflownet as jmem
 from tpuflow.core.mofnet import MOFNet as JaxMOFNet
+from tpuflow.pipeline.cache import FlowCacheManager as JaxFlowCacheManager
 from tpuflow.pipeline.video_io import FrameExtractor
 from tpuflow.runtime.convert import unflatten_params
 from tpuflow.runtime.engine import FlowEngine as JaxFlowEngine
 from tpuflow.tools import cli as jcli
+from tpuflow.tools import pipeline as jpipeline_module
 from tpuflow.tools.pipeline import FlowPipeline as JaxFlowPipeline
 from tpuflow.tools.pipeline import create_difference_overlay as jax_difference_overlay
 from tests.test_torch_port_model import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
@@ -50,6 +53,7 @@ from tpuflow_torch.runtime.convert import state_dict_from_jax
 from tpuflow_torch.runtime.device import DeviceManager
 from tpuflow_torch.runtime.engine import FlowEngine
 from tpuflow_torch.tools import cli
+from tpuflow_torch.tools import pipeline as pipeline_module
 from tpuflow_torch.tools.pipeline import FlowPipeline, create_difference_overlay
 
 REPO = Path(__file__).resolve().parent.parent
@@ -392,12 +396,13 @@ def test_show_tiles_matches_jax(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """--interactive, --num-processes > 1 and the multi-host pass raise
-    NotImplementedError naming their ROADMAP item; a missing input returns
-    1; 'auto' and 'cuda' without a card and 'tpu' raise."""
+    """--num-processes > 1 and the multi-host pass raise NotImplementedError
+    naming their ROADMAP item; a missing input returns 1; 'auto' and 'cuda'
+    without a card (--interactive included) and 'tpu' raise."""
     video = write_clip(str(tmp_path / "c.avi"), n=2)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        cli.main(["--input", video, "--interactive"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="No CUDA device"):
+            cli.main(["--input", video, "--interactive"])
     with pytest.raises(NotImplementedError, match="item 3"):
         cli.main(["--input", video, "--num-processes", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 3"):
@@ -433,3 +438,48 @@ def test_cli_module_runs_on_the_cpu(tmp_path):
     assert read_video(str(out)).shape == (4, 192, 256, 3)
     cache_dir = tmp_path / "c_flow_cache_videoflow_mof_sintel_standard_seq3_start0_frames4_fast"
     assert FlowCacheManager().check_flow_lods_exist(str(cache_dir), 4)
+
+
+@pytest.mark.parametrize("cache", ["complete", "incomplete"])
+def test_interactive_matches_jax(weights, tmp_path, monkeypatch, capsys, cache):
+    """--interactive through each package's CLI, in a directory of its own,
+    without a display: with a complete cache (the same flows written by each
+    package's cache manager, no LODs: the inspector makes them) and with an
+    incomplete one (two of six flows: the pipeline computes them all first,
+    with the tiny engines).  Both return 1 and print the cache statistics;
+    the statistics are equal, but for the byte counts of flows each package
+    computed itself (compressed; the flows agree within FLOW_TOL)."""
+    monkeypatch.delenv("DISPLAY", raising=False)
+    config = PipelineConfig(**BASE)
+    jeng, eng = engines(weights, config)
+    monkeypatch.setattr(jpipeline_module, "FlowPipeline", lambda cfg: JaxFlowPipeline(cfg, engine=jeng))
+    monkeypatch.setattr(pipeline_module, "FlowPipeline", lambda cfg: FlowPipeline(cfg, engine=eng))
+    flows = np.random.default_rng(44).normal(0, 2, (N, H, W, 2)).astype(np.float32)
+    out = {}
+    for side, mod, mgr in (("jax", jcli, JaxFlowCacheManager()), ("port", cli, FlowCacheManager())):
+        d = tmp_path / side
+        os.makedirs(d / "results")
+        video = write_clip(str(d / "clip.avi"))
+        cache_dir = FlowPipeline(config.replace(input=video), engine=eng).cache_dir_for(video, 0, N)
+        for i in range(N if cache == "complete" else 2):
+            mgr.save_flow_to_cache(flows[i], cache_dir, i)
+        capsys.readouterr()
+        rc = mod.main(["--input", video, "--output", str(d / "results"), "--frames", str(N), "--sequence-length",
+                       str(SEQ), "--encoder", "cnn", "--device", "cpu", "--allow-random-init", "--no-autoplay",
+                       "--uncompressed", "--interactive"])
+        text = capsys.readouterr().out
+        stats = ast.literal_eval(text.split("Cache statistics: ")[1].splitlines()[0])
+        out[side] = (rc, stats, text, np.stack([FlowCacheManager().load_cached_flow(cache_dir, i) for i in range(N)]))
+    (jrc, jstats, jtext, jflows), (rc, stats, text, got) = out["jax"], out["port"]
+    assert rc == jrc == 1
+    for t in (text, jtext):
+        assert "Cannot start Tk visualizer" in t and "--- LOD Cache Statistics ---" in t
+        assert ("Cache incomplete (4 frames missing)" in t) == (cache == "incomplete")
+    assert stats["frames"] == N and stats["complete_lods"]
+    if cache == "complete":
+        assert stats == jstats
+        np.testing.assert_array_equal(got, flows)
+    else:
+        drop = ("flow_bytes", "lod_bytes")
+        assert {k: v for k, v in stats.items() if k not in drop} == {k: v for k, v in jstats.items() if k not in drop}
+        np.testing.assert_allclose(got, jflows, rtol=FLOW_TOL, atol=FLOW_TOL)

@@ -9,14 +9,17 @@ in `csrc/` and are built with nvcc at first use (kernels/_build.py).
 
 Entry points: `runtime.engine.FlowEngine`, `runtime.engine.build_model`,
 `tools.pipeline.FlowPipeline` and the CLI, `python3 -m
-tpuflow_torch.tools.cli`.
+tpuflow_torch.tools.cli` (with `--interactive`, the visualizer of
+`tools/visualizer.py` over the correction engine of `tools/correction.py`),
+the GUI launcher `python3 -m tpuflow_torch.tools.gui`, and the legacy
+`compat.VideoFlowInference` / `MemFlowInference` API.
 """
 
 from .config import ModelConfig
 
-# PipelineConfig, FlowEngine and FlowPipeline load on first use, so that
-# importing the package pulls in neither cv2 nor the engine.
-__all__ = ["ModelConfig", "PipelineConfig", "FlowEngine", "FlowPipeline"]
+# Everything but ModelConfig loads on first use, so that importing the
+# package pulls in neither cv2 nor the engine.
+__all__ = ["ModelConfig", "PipelineConfig", "FlowEngine", "FlowPipeline", "VideoFlowInference", "MemFlowInference"]
 
 
 def __getattr__(name):
@@ -32,4 +35,8 @@ def __getattr__(name):
         from .tools.pipeline import FlowPipeline
 
         return FlowPipeline
+    if name in ("VideoFlowInference", "MemFlowInference"):
+        from . import compat
+
+        return getattr(compat, name)
     raise AttributeError(f"module 'tpuflow_torch' has no attribute {name!r}")

@@ -87,6 +87,13 @@ def group_tiles_by_shape(tiles_info: List[dict]) -> dict:
     return groups
 
 
+def extract_tile(frame: np.ndarray, tile_info: dict) -> np.ndarray:
+    """Crop without padding (videoflow_processor.py:112-120)."""
+    x, y = tile_info["x"], tile_info["y"]
+    w, h = tile_info["width"], tile_info["height"]
+    return frame[y : y + h, x : x + w]
+
+
 def extract_tile_group(
     frames: np.ndarray, tiles_info: List[dict], indices: List[int], overlap: int = 0
 ) -> np.ndarray:

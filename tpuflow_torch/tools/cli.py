@@ -7,8 +7,10 @@ flag, default and choice) plus the JAX package's extensions under
     python3 -m tpuflow_torch.tools.cli --input clip.mp4 --allow-random-init
 
 runs on the card; `--device cpu` runs the engine and the ops on the CPU.
-`--interactive` (the visualizer, ROADMAP.md section 1, item 2) and
-`--num-processes > 1` (the multi-host flow pass, item 3) are refused.
+`--interactive` computes the flows if the cache is incomplete and opens the
+flow visualizer (tools/visualizer.py) on the same device.
+`--num-processes > 1` (the multi-host flow pass, ROADMAP.md section 1,
+item 3) is refused.
 """
 
 from __future__ import annotations
@@ -164,9 +166,9 @@ def main(argv=None) -> int:
         return 0
 
     if config.interactive:
-        raise NotImplementedError(
-            "--interactive (the flow visualizer) is not ported yet (ROADMAP.md section 1, item 2)"
-        )
+        from .visualizer import launch_interactive
+
+        return launch_interactive(config)
 
     if args.num_processes > 1:
         raise NotImplementedError(
