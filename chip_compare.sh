@@ -27,15 +27,23 @@
 # <kernel host ms> <lookup device ms> <lookup host ms> <lookup busy ms>
 # <patch-kernel device ms> <patch-kernel launches>".
 #
+# Flows mode (--flows): no timing; each tree once computes the tiled
+# phase's flows (six 1920x1080 frames, compute_flows_tiled_stride1) and one
+# untiled window's (compute_flow, 'auto'), and the two trees' flows are
+# compared bit for bit.  Prints "FLOWS BIT-EQUAL" (exit 0) or "FLOWS DIFFER"
+# (exit 1) with the result per path.
+#
 #     git archive <commit> | tar -x -C archive_check/parent   # a gitignored dir
 #     bash chip_compare.sh archive_check/parent               # from the repository root
 #     bash chip_compare.sh --untiled archive_check/parent
 #     bash chip_compare.sh --patch archive_check/parent
+#     bash chip_compare.sh --flows archive_check/parent
 set -u
 mode=tiled
 if [ "${1:-}" = --untiled ]; then mode=untiled; shift; fi
 if [ "${1:-}" = --patch ]; then mode=patch; shift; fi
-other=${1:?usage: bash chip_compare.sh [--untiled | --patch] <directory holding another tree of the repository>}
+if [ "${1:-}" = --flows ]; then mode=flows; shift; fi
+other=${1:?usage: bash chip_compare.sh [--untiled | --patch | --flows] <directory holding another tree of the repository>}
 drive_tiled='
 import sys, chip_smoke as cs
 cs.phase_environment()
@@ -143,6 +151,19 @@ for layout in ("flat", "band"):
     print("PATCH", sys.argv[1], layout, *times, sum(x[0] for x in rows), sum(x[0] for x in patch),
           sum(x[1] for x in patch))
 '
+# Only what both trees share: the engine and chip_smoke.synthetic_clip.
+drive_flows='
+import sys, numpy as np, chip_smoke as cs
+cs.phase_environment()
+from tpuflow_torch.config import ModelConfig
+from tpuflow_torch.runtime.engine import FlowEngine
+engine = FlowEngine(ModelConfig(), seed=cs.SEED)
+engine.load_model(allow_random_init=True)
+frames = cs.synthetic_clip(cs.MAIN_FRAMES, cs.MAIN_H, cs.MAIN_W, cs.SEED)
+tiled, untiled = engine.compute_flows_tiled_stride1(frames), engine.compute_flow(frames, 2)
+np.savez(sys.argv[2], tiled=tiled, untiled=untiled)
+print("FLOWS", sys.argv[1], "mean |flow| tiled", float(np.abs(tiled).mean()), "untiled", float(np.abs(untiled).mean()))
+'
 drive=$drive_tiled; pattern="^card|^E2E|^end to end|^profile of|flash_fwd|dense_lookup_kernel|Error|Traceback"
 if [ $mode = untiled ]; then
     drive=$drive_untiled; pattern="^card|^UNTILED|corr_patch|Error|Traceback"
@@ -153,6 +174,22 @@ fi
 log=$(mktemp)
 trap 'rm -f "$log"' EXIT
 status=0
+if [ $mode = flows ]; then
+    work=$(mktemp -d)
+    trap 'rm -f "$log"; rm -rf "$work"' EXIT
+    for tree in other this; do
+        dir=.; [ $tree = other ] && dir=$other
+        (cd "$dir" && python3 -c "$drive_flows" $tree "$work/$tree.npz") > "$log" 2>&1 || status=1
+        grep -E "^card|^FLOWS|Error|Traceback" "$log"
+    done
+    python3 -c '
+import sys, numpy as np
+a, b = np.load(sys.argv[1]), np.load(sys.argv[2])
+same = {k: bool(np.array_equal(a[k], b[k])) for k in a.files}
+print("FLOWS BIT-EQUAL" if all(same.values()) else "FLOWS DIFFER", same)
+sys.exit(0 if all(same.values()) else 1)' "$work/other.npz" "$work/this.npz" || status=1
+    exit $status
+fi
 for tree in other this this other; do
     dir=.; [ $tree = other ] && dir=$other
     (cd "$dir" && python3 -c "$drive" $tree) > "$log" 2>&1 || status=1

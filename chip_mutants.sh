@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and seventeen deliberately broken, and prints for each copy whether each
+# and nineteen deliberately broken, and prints for each copy whether each
 # phase passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
@@ -41,7 +41,12 @@
 #              positive)                  -> the correction phase fails
 #   nccmean    correction.py: ncc_match_batch without the template's mean
 #              subtracted                 -> the correction phase fails
-# The unbroken copy must pass all twelve phases.  Needs one CUDA card and
+#   meshorder  tpuflow_torch/runtime/engine.py: the replicas' shards
+#              gathered in reverse order  -> the data-parallel phase fails
+#   gradavg    tpuflow_torch/runtime/sharding.py: shard_train_step averages
+#              the replicas' gradients with equal weights, not by shard
+#              size                       -> the train phase fails
+# The unbroken copy must pass all fourteen phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh                 # from the repository root
@@ -55,9 +60,9 @@ runner='
 import sys, torch, chip_smoke as cs
 cs.phase_environment(); cs.phase_build()
 copy, phases = sys.argv[1], sys.argv[2].split(",")
-dev = torch.device("cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
 engine = kernels = None
-if "formulations" in phases or "untiled" in phases:
+if "formulations" in phases or "untiled" in phases or "dataparallel" in phases:
     from tpuflow_torch.config import ModelConfig
     from tpuflow_torch.runtime.engine import FlowEngine
     from tpuflow_torch.kernels.bandlookup import band_patch_level
@@ -82,6 +87,8 @@ runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "memflow": lambda: cs.phase_memflow(cs.kernel_counters()),
         "pipeline": lambda: cs.phase_pipeline(cs.kernel_counters()),
         "correction": lambda: cs.phase_correction(cs.kernel_counters()),
+        "dataparallel": lambda: cs.phase_data_parallel(engine, kernels),
+        "train": lambda: cs.phase_train(cs.kernel_counters(), dev),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
         "k3": lambda: cs.check_corr_patch(dev, *k3),
         "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band")}
@@ -100,7 +107,7 @@ for name in phases:
 
 status=0
 copies=${*:-unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
-                k1stride tilebatch readermask taaflow phaseunwrap nccmean}
+                k1stride tilebatch readermask taaflow phaseunwrap nccmean meshorder gradavg}
 for copy in $copies; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
@@ -109,7 +116,7 @@ for copy in $copies; do
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline,correction ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline,correction,dataparallel,train ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -144,11 +151,15 @@ for copy in $copies; do
                    sed -i 's|torch.where(px > w // 2, px - w, px).float()|px.float()|; s|torch.where(py > h // 2, py - h, py).float()|py.float()|' $edited ;;
         nccmean)   phases=correction; edited=tpuflow_torch/tools/correction.py
                    sed -i 's/^    tz = template - tmean$/    tz = template/' $edited ;;
+        meshorder) phases=dataparallel; edited=tpuflow_torch/runtime/engine.py
+                   sed -i 's/return np.concatenate(\[f.result() for f in fetches\])/return np.concatenate([f.result() for f in fetches[::-1]])/' $edited ;;
+        gradavg)   phases=train; edited=tpuflow_torch/runtime/sharding.py
+                   sed -i 's|share = w.shape\[0\] / n|share = 1 / len(self.devices)|' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|^correction|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|^correction|^data parallel|^train|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

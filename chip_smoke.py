@@ -95,7 +95,28 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    reference (three) at full size, phase correlation and the coarse pass on
    a known 1080p translation, and both passes on the card against the CPU
    on 512 bad pixels where their peaks are clear.
-16. checked build, in a child process started before phase 2 (this script
+16. data parallel: FlowEngine(mesh=) over a Mesh listing the card twice
+   (on a one-card host; PipelineConfig(data_parallel=2) builds no
+   mesh on one card) at the product configuration on the main engine's
+   weights: compute_flows_tiled_stride1 on six 1080p frames with
+   window_batch 2, bit for bit the one-replica engine; compute_flow_batch
+   on three untiled 1080p windows padded to four (K3 and K2 per replica);
+   compute_flows_strided on seven frames, bit for bit the one-replica
+   window_batch 1; frames/s, peak memory and launches (two replicas on one
+   card show correctness, not a speed-up).
+17. checkpoint: save_params of the main engine's weights and load_model of
+   the native file into a fresh engine, weights and flows bit for bit; the
+   converter `python3 -m tpuflow_torch.runtime.checkpoint` on a .pth.
+18. distributed: two CLI processes (--num-processes 2, gloo, both on the
+   card) --tile on a 6-frame 1920x1080 clip, against one process's pass on
+   a copy, and --model memflow on 8 frames of 640x480, bit for bit (the
+   warm-up prefix reaches frame 0); each process's wall.
+19. train: shard_train_step over two replicas on the card, the product
+   configuration at 368x496 in f32 (dense_lookup='xla', gma_impl='xla',
+   AdamW), three steps under torch's default TF32 flags (ms per step,
+   peak memory); K1 and K2 refuse a backward; one narrow step card against
+   CPU with TF32 off.
+20. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
    with its bounds guards (kernels/_build.py, checked=True), each of the six
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
@@ -2799,6 +2820,407 @@ def phase_correction(kernels) -> dict:
     return out
 
 
+DP_SLOTS = 2                      # replicas of the data-parallel phase, both on the one card
+DP_UNTILED = (0, 2, 5)            # frames whose untiled windows compute_flow_batch runs under the mesh
+STRIDED_FRAMES = 7                # untiled frames of the data-parallel compute_flows_strided
+
+
+def phase_data_parallel(engine, kernels) -> dict:
+    """FlowEngine(mesh=) over a Mesh that lists the card DP_SLOTS times (the
+    script needs one card only), on the main engine's weights at the product
+    configuration: compute_flows_tiled_stride1 on MAIN_FRAMES 1080p frames
+    with window_batch 2 (one window per replica: bit for bit the one-replica
+    engine's window_batch 1), compute_flow_batch on the three untiled 1080p
+    windows of DP_UNTILED (padded to four: K3 and K2 at S = 32 400 per
+    replica; the first replica's two windows bit for bit a one-replica
+    batch of the same two, all three within the bf16 limits of one batch of
+    three), and compute_flows_strided on STRIDED_FRAMES frames (three
+    windows padded to four, one per replica per batch: bit for bit the
+    one-replica window_batch 1).  Counters zeroed just before each mesh call
+    and read just after.  PipelineConfig(data_parallel=2) builds a mesh of
+    min(2, cards) cards, none on one card.  Two replicas on one card run one
+    after the other: these numbers show correctness, not a speed-up."""
+    from tpuflow_torch.config import PipelineConfig
+    from tpuflow_torch.runtime.engine import FlowEngine
+    from tpuflow_torch.runtime.sharding import Mesh
+    from tpuflow_torch.tools.pipeline import FlowPipeline
+
+    cfg = engine.config
+    cards = torch.cuda.device_count()
+    pipe_mesh = FlowPipeline(PipelineConfig(data_parallel=DP_SLOTS), engine=None).engine.mesh
+    if (pipe_mesh is None) != (cards == 1) or (pipe_mesh is not None and pipe_mesh.shape != {"data": 2}):
+        raise AssertionError(f"data parallel: PipelineConfig(data_parallel=2) on {cards} cards built {pipe_mesh}")
+    mesh = FlowEngine(cfg, seed=SEED, params=engine.model.state_dict(), mesh=Mesh([engine.device] * DP_SLOTS))
+    mesh.load_model()
+    note = f"{DP_SLOTS} replicas on one card run one after the other: correctness, not a speed-up"
+    out = {"slots": DP_SLOTS, "note": note, "pipeline_mesh_on_one_card": pipe_mesh is None}
+
+    def mesh_call(what, fn, frames_done, want):
+        reset_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        flows, wall = timed_call(fn)
+        launches = read_launches(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not np.isfinite(flows).all():
+            raise AssertionError(f"data parallel {what}: flows not finite")
+        if launches != want:
+            raise AssertionError(f"data parallel {what}: kernel launches {launches}, expected {want}")
+        log(f"data parallel {what}: {frames_done} frames in {wall:.3f} s = {frames_done / wall:.4f} frames/s, "
+            f"peak {peak:.2f} GiB, launches {launches} ({note})")
+        return flows, {"wall_s": wall, "frames_per_s": frames_done / wall, "peak_gib": peak, "launches": launches}
+
+    frames = synthetic_clip(MAIN_FRAMES, MAIN_H, MAIN_W, SEED)
+    ref, ref_wall = timed_call(lambda: engine.compute_flows_tiled_stride1(frames))
+    depth = cfg.decoder_depth
+    flows, out["tiled"] = mesh_call(
+        "tiled stride-1, window_batch 2", lambda: mesh.compute_flows_tiled_stride1(frames, window_batch=2),
+        MAIN_FRAMES, expected_launches(kernels, dense_lookup=MAIN_FRAMES * 2 * depth,
+                                       flash_attention_fwd=MAIN_FRAMES * depth))
+    out["tiled"]["one_replica_wall_s"] = ref_wall
+    if not np.array_equal(flows, ref):
+        raise AssertionError(f"data parallel tiled: not bit for bit the one-replica engine's (max |diff| "
+                             f"{np.abs(flows - ref).max()})")
+    out["tiled"]["bit_equal_one_replica"] = True
+
+    idx = list(DP_UNTILED)
+    ref = engine.compute_flow_batch(frames, idx)
+    pair = engine.compute_flow_batch(frames, idx[:2])
+    per_batch = dict(flash2_patch_level=2 * depth * cfg.corr_levels, flash_attention_fwd=depth)
+    flows, out["untiled"] = mesh_call(
+        f"compute_flow_batch, {len(idx)} untiled windows padded to 4", lambda: mesh.compute_flow_batch(frames, idx),
+        len(idx), expected_launches(kernels, **{k: v * DP_SLOTS for k, v in per_batch.items()}))
+    if not np.array_equal(flows[:2], pair):
+        raise AssertionError("data parallel untiled: the first replica's two windows are not a one-replica "
+                             "batch of the same two, bit for bit")
+    out["untiled"]["first_replica_bit_equal"] = True
+    out["untiled"]["vs_one_batch_of_three"] = check_flows_agree("data parallel untiled vs one batch of three",
+                                                                flows, ref)
+
+    strided = synthetic_clip(STRIDED_FRAMES, MAIN_H, MAIN_W, SEED + 7)
+    windows = len(range(-1, STRIDED_FRAMES - 1, cfg.sequence_length - 2))
+    dispatches = math.ceil(windows / DP_SLOTS) * DP_SLOTS
+    ref = engine.compute_flows_strided(strided, window_batch=1)
+    flows, out["strided"] = mesh_call(
+        f"compute_flows_strided, {windows} windows, window_batch 2",
+        lambda: mesh.compute_flows_strided(strided, window_batch=2), STRIDED_FRAMES,
+        expected_launches(kernels, **{k: v * dispatches for k, v in per_batch.items()}))
+    if not np.array_equal(flows, ref):
+        raise AssertionError(f"data parallel strided: not bit for bit the one-replica window_batch 1 "
+                             f"(max |diff| {np.abs(flows - ref).max()})")
+    out["strided"]["bit_equal_one_replica"] = True
+    usage = mesh.get_memory_usage()
+    if list(usage) != [f"cuda:{engine.device.index}"]:
+        raise AssertionError(f"data parallel: get_memory_usage reports {list(usage)}")
+    out["memory_usage"] = usage
+    del mesh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoint(engine) -> dict:
+    """Native checkpoints: save_params of the main engine's weights (bf16 on
+    the card, written as the JAX package's float32 flax tree), load_model of
+    that file into a fresh engine: the same weights and the same flows on a
+    640x480 clip, bit for bit; then `python3 -m tpuflow_torch.runtime.checkpoint
+    IN.pth OUT.msgpack` on a .pth of the weights in f32 (a process of its
+    own, on the card): the file holds the .pth's weights exactly."""
+    import os
+    import tempfile
+
+    from tpuflow_torch.runtime.checkpoint import load_params, save_params
+    from tpuflow_torch.runtime.engine import FlowEngine
+
+    h, w = SINGLE_TILE_HW
+    frames = synthetic_clip(5, h, w, SEED + 30)
+    state = engine.model.state_dict()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mof.msgpack")
+        _, out["save_s"] = timed_call(lambda: save_params(path, state))
+        out["file_mb"] = os.path.getsize(path) / 1e6
+        fresh = FlowEngine(engine.config, seed=SEED + 99)
+        _, out["load_s"] = timed_call(lambda: fresh.load_model(path))
+        same = all(torch.equal(v, state[k]) for k, v in fresh.model.state_dict().items())
+        a, b = engine.compute_flow(frames, 2), fresh.compute_flow(frames, 2)
+        if not (same and np.array_equal(a, b)):
+            raise AssertionError(f"checkpoint: reloaded weights equal {same}, flows max |diff| {np.abs(a - b).max()}")
+        del fresh
+        pth, dst = os.path.join(tmp, "mof.pth"), os.path.join(tmp, "converted.msgpack")
+        f32 = {k: v.float().cpu() for k, v in state.items()}
+        torch.save(f32, pth)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "tpuflow_torch.runtime.checkpoint", pth, dst],
+                             capture_output=True, text=True, timeout=600)
+        out["convert_process_s"] = time.perf_counter() - t0
+        if res.returncode != 0 or "converted" not in res.stdout:
+            raise AssertionError(f"checkpoint main failed: {res.stdout[-1500:]} {res.stderr[-1500:]}")
+        got = load_params(dst, f32)
+        if not all(torch.equal(got[k], v) for k, v in f32.items()):
+            raise AssertionError("checkpoint main: the native file does not hold the .pth's weights")
+    log(f"checkpoint: {out['file_mb']:.1f} MB, save {out['save_s']:.3f} s, load {out['load_s']:.3f} s, "
+        f"conversion process {out['convert_process_s']:.1f} s; weights and flows bit for bit")
+    out["bit_equal"] = True
+    torch.cuda.empty_cache()
+    return out
+
+
+DIST_FRAMES = 6                   # 1080p frames of the two-process --tile flow pass
+DIST_MEMFLOW = (8, 480, 640)      # frames, H, W of the two-process MemFlow pass
+DIST_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_process_cli(video: str, out_dir: str, n: int, extra) -> list:
+    """Two `python3 -m tpuflow_torch.tools.cli ... --num-processes 2` processes
+    on the card (both on cuda:0 over gloo), started together; returns their
+    (output, wall s), each waited for within DIST_TIMEOUT."""
+    import os
+
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    procs = []
+    for pid in range(2):
+        cmd = [sys.executable, "-m", "tpuflow_torch.tools.cli", "--input", video, "--frames", str(n),
+               "--output", out_dir, "--allow-random-init", "--skip-lods", "--no-autoplay", *extra,
+               "--coordinator", coord, "--num-processes", "2", "--process-id", str(pid)]
+        procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                      time.perf_counter()))
+    results = []
+    try:
+        for proc, t0 in procs:
+            text = proc.communicate(timeout=DIST_TIMEOUT)[0]
+            results.append((text, time.perf_counter() - t0))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for (proc, _), (text, _) in zip(procs, results):
+        if proc.returncode != 0:
+            raise AssertionError(f"distributed CLI process failed:\n{text[-3000:]}")
+    return results
+
+
+def cached_flows(pipe, video: str, n: int) -> np.ndarray:
+    from tpuflow_torch.pipeline.cache import FlowCacheManager
+
+    cache = pipe.cache_dir_for(video, 0, n)
+    mgr = FlowCacheManager()
+    ok, fmt, missing = mgr.check_cache_exists(cache, n)
+    if not ok:
+        raise AssertionError(f"distributed: cache {cache} incomplete ({fmt}, missing {missing})")
+    return np.stack([mgr.load_cached_flow(cache, i, fmt) for i in range(n)])
+
+
+def phase_distributed(kernels) -> dict:
+    """The multi-process flow pass on the card: two CLI processes
+    (--num-processes 2 --tile, both on cuda:0 over gloo) on a 1920x1080 clip
+    of DIST_FRAMES frames, each its own range; then one process's
+    compute_flows_distributed on a copy of the clip (the whole range, in this
+    process, counters zeroed before and read after): the union cache is
+    complete and its flows within the bf16 limits of the one process's (bit
+    equality reported).  Then --model memflow the same way on DIST_MEMFLOW:
+    the warm-up prefix reaches frame 0, so the union cache equals the one
+    stream bit for bit.  Each process's wall on the host clock."""
+    import os
+    import shutil
+    import tempfile
+
+    from tpuflow_torch.config import PipelineConfig
+    from tpuflow_torch.tools.pipeline import FlowPipeline
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, (n, h, w), extra, kw in (
+            ("tile", (DIST_FRAMES, MAIN_H, MAIN_W), ["--tile"], dict(tile=True)),
+            ("memflow", DIST_MEMFLOW, ["--model", "memflow"], dict(model="memflow")),
+        ):
+            video = os.path.join(tmp, f"{what}.avi")
+            write_clip(video, n, h, w, SEED + 40)
+            single = os.path.join(tmp, f"{what}_single.avi")
+            shutil.copy(video, single)
+            os.makedirs(os.path.join(tmp, what), exist_ok=True)
+            results = two_process_cli(video, os.path.join(tmp, what), n, extra)
+            for pid, (text, _) in enumerate(results):
+                if f"{n}/{n} flows complete" not in text:
+                    raise AssertionError(f"distributed {what}: process {pid} did not see the whole count:\n"
+                                         f"{text[-2000:]}")
+            owned = [line.split("own flows ")[1] for text, _ in results for line in text.splitlines()
+                     if "own flows" in line]
+            pipe = FlowPipeline(PipelineConfig(input=single, frames=n, allow_random_init=True, skip_lods=True, **kw))
+            reset_launches(kernels)
+            _, one_wall = timed_call(pipe.compute_flows_distributed)
+            launches = read_launches(kernels)
+            dist = cached_flows(pipe, video, n)
+            ref = cached_flows(pipe, single, n)
+            res = {"frames": n, "shape": [h, w], "owned": owned, "process_wall_s": [t for _, t in results],
+                   "one_process_wall_s": one_wall, "one_process_launches": launches,
+                   "bit_equal": bool(np.array_equal(dist, ref))}
+            if what == "tile":
+                depth = pipe.engine.config.decoder_depth
+                want = expected_launches(kernels, dense_lookup=n * 2 * depth, flash_attention_fwd=n * depth)
+                if launches != want:
+                    raise AssertionError(f"distributed tile: launches {launches}, expected {want}")
+                res["vs_one_process"] = check_flows_agree("distributed --tile vs one process", dist, ref)
+            else:
+                if not any("memory warm-up" in text for text, _ in results):
+                    raise AssertionError("distributed memflow: no process logged its memory warm-up")
+                if not res["bit_equal"]:
+                    raise AssertionError(f"distributed memflow: not bit for bit the one stream (max |diff| "
+                                         f"{np.abs(dist - ref).max()})")
+            log(f"distributed {what}: {n} frames of {w}x{h}, owned {owned}, process walls "
+                f"{[round(t, 3) for t in res['process_wall_s']]} s, one process {one_wall:.3f} s, "
+                f"bit equal {res['bit_equal']}")
+            out[what] = res
+            del pipe
+            torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_HW = (368, 496)             # RAFT's FlyingChairs crop
+TRAIN_STEPS = 3
+TRAIN_WINDOWS = 2
+TRAIN_NARROW = dict(encoder="cnn", corr_levels=2, corr_radius=2, decoder_depth=2, feature_dim=64)
+TRAIN_NARROW_HW = (64, 96)
+# Card against CPU, one step at the narrow width in f32 with TF32 off: the
+# loss within 1e-4 relative, each gradient within 5e-3 of its tensor's
+# largest |gradient| plus 1e-6 (sums in another order, through two
+# iterations; a gradient that is lost or wrong is off by its own size).
+# The same bounds hold shard_train_step over two replicas on a ragged batch
+# (2 + 1 windows) to one step on the whole batch, on the card: an average
+# not weighted by shard size is off by a sixth of the gradients.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_SHARE = 5e-3
+
+
+def train_batch(dev, b: int, t: int, h: int, w: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    windows = torch.rand((b, t, h, w, 3), generator=g)
+    targets = torch.randn((b, h, w, 2), generator=g) * 4.0
+    return windows.to(dev), targets.to(dev)
+
+
+def phase_train(kernels, dev) -> dict:
+    """The train step on the card: the product configuration (Twins, 4
+    levels, radius 4, 12 iterations, T=5, published widths) in f32 with f32
+    volumes, dense_lookup='xla' and gma_impl='xla', at TRAIN_HW; TRAIN_STEPS
+    steps of shard_train_step over a mesh that lists the card twice, with
+    TRAIN_WINDOWS windows (one per replica) and AdamW(lr=1e-4,
+    weight_decay=1e-4, eps=1e-8), under torch's default TF32 flags (cuDNN
+    may use TF32, matmuls do not), logged: finite losses, every trained
+    parameter moved, ms per step by CUDA events and peak memory.  Then a
+    backward with dense_lookup='auto' (K1) and with gma_impl='flash' (K2)
+    raises the kernels' refusal; then one step at a narrow width on the card
+    and on the CPU with TF32 off, and on the card shard_train_step over two
+    replicas on a ragged batch against one step on the whole batch: the loss
+    and every gradient within TRAIN_LOSS_TOL and TRAIN_GRAD_SHARE."""
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.core.mofnet import MOFNet
+    from tpuflow_torch.runtime.engine import FlowEngine, init_random_
+    from tpuflow_torch.runtime.sharding import Mesh, make_train_step, shard_train_step, window_loss
+
+    engine = FlowEngine(ModelConfig(), seed=SEED + 50, device=dev, dtype=torch.float32, dense_lookup="xla")
+    engine.model.corr_dtype = torch.float32
+    engine.model.gma_impl = "xla"
+    engine.load_model(allow_random_init=True)
+    model = engine.model
+    del engine
+    h, w = TRAIN_HW
+    t = ModelConfig().sequence_length
+    windows, targets = train_batch(dev, TRAIN_WINDOWS, t, h, w, SEED + 51)
+    start = [p.detach().clone() for p in model.parameters()]
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    step = shard_train_step(make_train_step(model, opt), Mesh([dev] * DP_SLOTS))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False   # torch's defaults
+    tf32 = {"cudnn.allow_tf32": True, "cuda.matmul.allow_tf32": False}
+    losses, ms = [], []
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(TRAIN_STEPS):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            loss = step(windows, targets)
+            t1.record()
+            t1.synchronize()
+            ms.append(t0.elapsed_time(t1))
+            losses.append(loss.item())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches(kernels)
+    moved = sum(int(not torch.equal(p, s)) for p, s in zip(model.parameters(), start))
+    trained = sum(1 for p in model.parameters() if p.grad is not None and p.grad.abs().max() > 0)
+    log(f"train: {TRAIN_STEPS} steps of {TRAIN_WINDOWS} windows of {t}x{w}x{h} over {DP_SLOTS} replicas on one "
+        f"card, f32, TF32 flags {tf32}: losses {losses}, ms per step {[round(m, 2) for m in ms]}, peak "
+        f"{peak:.2f} GiB, {moved} of {len(start)} parameters moved ({trained} with a gradient), launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or moved < trained or trained < len(start) - 1:
+        raise AssertionError(f"train: losses {losses}, {moved} parameters moved, {trained} with a gradient")
+    if any(launches.values()):
+        raise AssertionError(f"train: the plain formulations launched kernels {launches}")
+    out = {"crop": [h, w], "windows": TRAIN_WINDOWS, "replicas": DP_SLOTS, "losses": losses, "ms_per_step": ms,
+           "peak_gib": peak, "tf32_flags": tf32, "parameters_moved": moved, "parameters": len(start)}
+    del step, opt, start
+
+    refused = {}
+    for attr, value, kernel in (("dense_lookup", "auto", "dense_lookup"), ("gma_impl", "flash", "flash_attention_fwd")):
+        setattr(model, attr, value)
+        reset_launches(kernels)
+        loss = window_loss(model, windows[:1], targets[:1])
+        try:
+            loss.backward()
+        except RuntimeError as exc:
+            if not str(exc).startswith(f"{kernel} has no backward") or "dense_lookup='xla'" not in str(exc):
+                raise
+            refused[kernel] = {"error": str(exc), "launches": read_launches(kernels)[kernel]}
+        else:
+            raise AssertionError(f"train: a backward through {kernel} ({attr}={value!r}) did not raise")
+        setattr(model, attr, "xla")
+    log(f"train: the kernels refuse a gradient: {json.dumps(refused)}")
+    out["refused"] = refused
+    model.zero_grad(set_to_none=True)
+    del model, loss
+    torch.cuda.empty_cache()
+
+    nh, nw = TRAIN_NARROW_HW
+
+    def narrow_step(on, b, mesh=None):
+        """(loss, {name: gradient on the CPU}) of one SGD step of the narrow
+        model on b seeded windows, on `on`, through shard_train_step when a
+        mesh is given."""
+        narrow = MOFNet(corr_dtype=torch.float32, dense_lookup="xla", gma_impl="xla", **TRAIN_NARROW)
+        init_random_(narrow, SEED + 52)
+        narrow = narrow.to(on)
+        one = make_train_step(narrow, torch.optim.SGD(narrow.parameters(), lr=0.0))
+        loss = (shard_train_step(one, mesh) if mesh is not None else one)(*train_batch(on, b, 3, nh, nw, SEED + 53))
+        return loss.item(), {k: p.grad.detach().cpu() for k, p in narrow.named_parameters()}
+
+    def compare(what, got, ref) -> dict:
+        (loss_a, ga), (loss_b, gb) = got, ref
+        worst = max(((ga[k] - g).abs().max() / (g.abs().max() + 1e-6)).item() for k, g in gb.items())
+        bad = [k for k, g in gb.items() if (ga[k] - g).abs().max() > TRAIN_GRAD_SHARE * g.abs().max() + 1e-6]
+        rel = abs(loss_a - loss_b) / abs(loss_b)
+        log(f"train {what}, narrow ({TRAIN_NARROW}, {nw}x{nh}), TF32 off: losses {loss_a} and {loss_b}, relative "
+            f"{rel:.3e}; worst gradient share {worst:.3e} (limit {TRAIN_GRAD_SHARE:g}) over {len(gb)} tensors")
+        if rel > TRAIN_LOSS_TOL or bad or set(ga) != set(gb):
+            raise AssertionError(f"train {what}: loss relative {rel}, gradients off in {bad[:5]}")
+        return {"losses": [loss_a, loss_b], "loss_rel": rel, "worst_grad_share": worst}
+
+    out["card_vs_cpu"] = compare("card vs cpu", narrow_step(dev, 2), narrow_step(torch.device("cpu"), 2))
+    out["ragged_vs_whole"] = compare("shard_train_step 2 + 1 vs the whole batch", narrow_step(dev, 3, Mesh([dev] * 2)),
+                                     narrow_step(dev, 3))
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_counters() -> dict:
     """The six kernels' wrappers by name; each counts its launches."""
     from tpuflow_torch.kernels.bandlookup import band_patch_level
@@ -2862,6 +3284,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     uhd = phase_uhd(engine, kernels)
     single = phase_single_tile(engine)
+    dp = phase_data_parallel(engine, kernels)
+    ckpt = phase_checkpoint(engine)
     del engine
     torch.cuda.empty_cache()
     bof = phase_bof(kernels)
@@ -2870,6 +3294,8 @@ def main() -> int:
     parity = phase_parity(kernels)
     pipeline = phase_pipeline(kernels, {"tiled": e2e["frames_per_s"], "memflow": memflow["frames_per_s"]})
     correction = phase_correction(kernels)
+    distributed = phase_distributed(kernels)
+    train = phase_train(kernels, dev)
 
     # Each kernel's launches on the path that runs it, counters zeroed just
     # before that path and read just after.
@@ -2893,7 +3319,8 @@ def main() -> int:
                     "untiled": untiled, "strided": strided, "formulations": forms,
                     "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
                     "bof": bof, "cnn": cnn, "memflow": memflow, "checked_build": checked,
-                    "parity_rel_err": parity, "pipeline": pipeline, "correction": correction}))
+                    "parity_rel_err": parity, "pipeline": pipeline, "correction": correction,
+                    "data_parallel": dp, "checkpoint": ckpt, "distributed": distributed, "train": train}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

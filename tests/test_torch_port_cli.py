@@ -396,17 +396,19 @@ def test_show_tiles_matches_jax(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """--num-processes > 1 and the multi-host pass raise NotImplementedError
-    naming their ROADMAP item; a missing input returns 1; 'auto' and 'cuda'
-    without a card (--interactive included) and 'tpu' raise."""
+    """--num-processes > 1 without a coordinator (argument or MASTER_ADDR and
+    MASTER_PORT) raises ValueError before any process group starts (the
+    multi-process pass itself is tests/test_torch_port_distributed.py's); a
+    missing input returns 1; 'auto' and 'cuda' without a card
+    (--interactive included) and 'tpu' raise; data_parallel on the CPU
+    builds no mesh."""
     video = write_clip(str(tmp_path / "c.avi"), n=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="No CUDA device"):
             cli.main(["--input", video, "--interactive"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cli.main(["--input", video, "--num-processes", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        FlowPipeline(PipelineConfig(**BASE), engine=object()).compute_flows_distributed()
+    with pytest.raises(ValueError, match="coordinator"):
+        cli.main(["--input", video, "--num-processes", "2", "--process-id", "0", "--device", "cpu"])
+    assert FlowPipeline(PipelineConfig(**BASE, data_parallel=4)).engine.mesh is None
     assert cli.main(["--input", str(tmp_path / "none.mp4")]) == 1
     assert DeviceManager.get_device("cpu") == torch.device("cpu")
     assert DeviceManager.get_device_info("cpu") == {"device": "cpu", "device_count": 1, "devices": ["cpu"]}

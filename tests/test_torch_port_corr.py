@@ -164,11 +164,13 @@ def test_dense_lookup_impls_agree(impl):
     torch.testing.assert_close(pyr.lookup(flow, 4, impl=impl), ref, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla", "onehot"])
+@pytest.mark.parametrize("impl", ["pallas", "interpret", "onehot"])
 def test_dense_lookup_rejects_unknown_impl(impl):
-    """The JAX package's backend names select nothing here: 'pallas' is the
-    kernel ('auto'), and the plain version is reached only by calling
-    `dense_lookup_plain`, never as an option of the model."""
+    """The JAX package's kernel backend names select nothing here: 'pallas'
+    and 'interpret' are the kernel ('auto'), and K1's plain version is
+    reached only by calling `dense_lookup_plain`, never as an option of the
+    model.  ('xla', the JAX package's differentiable formulation, is an
+    option: tests/test_torch_port_sharding.py.)"""
     f = torch.zeros(1, 4, 6, 8)
     with pytest.raises(ValueError, match="dense_lookup"):
         tcorr.DenseCorrPyramid.build(f, f, 2).lookup(torch.zeros(1, 4, 6, 2), 2, impl=impl)

@@ -10,8 +10,9 @@ plane, channels in upstream's x-major window order, f32
 
 - DenseCorrPyramid ('dense', 'auto' up to 168x168 grids): levels
   materialized from 2^l-pooled target features, flat [B*h*w, lh, lw] in the
-  features' dtype; lookup = kernel K1 (fused), or K4 + the patch epilogue
-  (`impl='patch'`).
+  features' dtype; lookup = kernel K1 (fused), K4 + the patch epilogue
+  (`impl='patch'`), or a plain torch gather + the same epilogue
+  (`impl='xla'`, the differentiable one).
 - FlashCorr2 ('flash2', 'auto' above the threshold): no volume; each
   lookup recomputes the (2r+2)^2 patch of correlations from pooled target
   features with kernel K3.
@@ -39,7 +40,7 @@ from ..kernels.flashcorr import flash_patch_level
 from ..kernels.flashcorr2 import flash2_patch_level
 
 MATERIALIZE_THRESHOLD = 168 * 168
-DENSE_LOOKUP_IMPLS = ("auto", "patch")
+DENSE_LOOKUP_IMPLS = ("auto", "patch", "xla")
 
 
 def pyramid_level_dims(h2: int, w2: int, level: int) -> Tuple[int, int]:
@@ -284,8 +285,13 @@ class DenseCorrPyramid:
         """flow [B, h, w, 2] f32 -> [B, h, w, L*(2r+1)^2] f32.  `impl`:
         'auto' = the fused kernel K1 (f32 bilinear); 'patch' = the
         exact-patch kernel K4 and the shared epilogue (bilinear in the
-        volume's dtype).  K1's plain version is `dense_lookup_plain`, called
-        directly by tests and yardsticks, never from here."""
+        volume's dtype); 'xla' = the JAX package's XLA formulation
+        (tpuflow/core/corr.py:607-702): each patch gathered in plain torch,
+        then the same epilogue, so it equals 'patch' bit for bit and is
+        differentiable in the volumes and the flow.  Only the caller picks
+        'xla' (the train step does); 'auto' never falls back to it.  K1's
+        plain version is `dense_lookup_plain`, called directly by tests and
+        yardsticks, never from here."""
         mode = impl or "auto"
         if mode not in DENSE_LOOKUP_IMPLS:
             raise ValueError(f"dense_lookup {mode!r}: expected one of {DENSE_LOOKUP_IMPLS}")
@@ -293,7 +299,20 @@ class DenseCorrPyramid:
         if mode == "auto":
             return dense_lookup(self.pyramid, flow, radius, self.level_offset)
         dims = [(v.shape[1], v.shape[2]) for v in self.pyramid]
-        return _patch_lookup(dense_patch_levels, self.pyramid, dims, flow, radius, self.level_offset)
+        patches = dense_patch_levels if mode == "patch" else _gather_patches
+        return _patch_lookup(patches, self.pyramid, dims, flow, radius, self.level_offset)
+
+
+def _gather_patches(volumes, rrs, ccs) -> List[torch.Tensor]:
+    """Per level [B*Nq, lh, lw] and clamped rr, cc [B, Nq, side] -> the
+    exact-value patch [B, Nq, side, side] of each query's own plane: one
+    plain gather per level, differentiable in the volumes."""
+    out = []
+    for vol, rr, cc in zip(volumes, rrs, ccs):
+        (b, nq, side), (n, lh, lw) = rr.shape, vol.shape
+        idx = rr.long()[:, :, :, None] * lw + cc.long()[:, :, None, :]
+        out.append(torch.gather(vol.reshape(n, lh * lw), 1, idx.reshape(n, side * side)).reshape(b, nq, side, side))
+    return out
 
 
 class OnTheFlyCorr:

@@ -3,9 +3,11 @@
 The context attention's q/k are computed once per window (`Attention`) and
 re-applied to the motion features on every refinement iteration
 (`Aggregate`), whose softmax(q k^T) v is kernel K2
-(kernels/flashattn.py).  Where the probabilities fit memory, MemFlow
-computes them once per frame (`materialize_attention`) and each iteration
-is then one matrix product.  Layout: NHWC at the public functions.
+(kernels/flashattn.py), or with `impl='xla'` the chunked exact softmax in
+plain torch, which is differentiable.  Where the probabilities fit memory,
+MemFlow, and MOFNet with gma_impl='xla', compute them once
+(`materialize_attention`) and each iteration is then one matrix product.
+Layout: NHWC at the public functions.
 
 State-dict names follow upstream: att.to_qk.weight,
 update_block.aggregator.to_v.weight, update_block.aggregator.gamma.
@@ -19,7 +21,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.flashattn import flash_attention_fwd
+from ..kernels.flashattn import flash_attention_fwd, flash_attention_plain
+
+GMA_IMPLS = ("auto", "flash", "xla")
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -73,10 +77,16 @@ class Attention(nn.Module):
 class Aggregate(nn.Module):
     """out = fmap + gamma * softmax(q k^T) v,  v = to_v(fmap).  VideoFlow's
     aggregator has dim == dim_head (128), so upstream's output projection
-    for dim != dim_head does not exist here."""
+    for dim != dim_head does not exist here.
+
+    `impl` (tpuflow/core/gma.py:167): how softmax(q k^T) v is applied when no
+    materialized `attn` is given.  'auto' and 'flash' = kernel K2 (the flash
+    kernel, as 'auto' means on the TPU; on the CPU its plain version), which
+    refuses a gradient; 'xla' = the chunked exact softmax in plain torch."""
 
     def __init__(self, dim: int = 128):
         super().__init__()
+        self.impl = "auto"
         self.to_v = nn.Conv2d(dim, dim, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
 
@@ -85,14 +95,16 @@ class Aggregate(nn.Module):
     ) -> torch.Tensor:
         """With `attn` (materialize_attention's [B, hw, hw]) one product
         attn @ v in attn's dtype (the GEMM accumulates in f32), cast to
-        fmap's dtype; without it kernel K2."""
+        fmap's dtype; without it kernel K2, or the chunked exact softmax
+        for impl='xla'."""
         b, h, w, _ = fmap.shape
         v = conv1x1(fmap, self.to_v)
         d = v.shape[-1]
+        attend = flash_attention_plain if self.impl == "xla" else flash_attention_fwd
         if attn is not None:
             out = torch.matmul(attn, v.reshape(b, h * w, d).to(attn.dtype))
         else:
-            out = flash_attention_fwd(
+            out = attend(
                 q.reshape(b, h * w, d).to(v.dtype).contiguous(),
                 k.reshape(b, h * w, d).to(v.dtype).contiguous(),
                 v.reshape(b, h * w, d).contiguous(),

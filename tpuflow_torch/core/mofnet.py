@@ -37,7 +37,7 @@ import torch.nn as nn
 
 from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
-from .gma import Attention
+from .gma import GMA_IMPLS, Attention, materialize_attention
 from .sk import SKUpdateBlockMOF
 from .update import upsample_flow_convex
 
@@ -83,10 +83,17 @@ class MOFNet(nn.Module):
         corr_dtype: torch.dtype = torch.bfloat16,
         corr_impl: str = "auto",
         dense_lookup: str = "auto",
+        gma_impl: str = "auto",
+        attn_mem_budget: int = 3 * 10**9,
     ):
         """`corr_impl`: see core/corr.py `make_corr`.  `dense_lookup`: the
-        lookup of a DenseCorrPyramid, 'auto' (kernel K1) or 'patch' (kernel
-        K4 + epilogue)."""
+        lookup of a DenseCorrPyramid, 'auto' (kernel K1), 'patch' (kernel
+        K4 + epilogue) or 'xla' (plain torch, differentiable).  `gma_impl`:
+        GMA's apply, 'auto' or 'flash' (kernel K2) or 'xla' (plain torch;
+        the probabilities are materialized once per window in `refine` when
+        the [B*N, hw, hw] bf16 matrix takes at most `attn_mem_budget` bytes,
+        as tpuflow/core/mofnet.py:465-478).  The train step needs 'xla' for
+        both: the kernels refuse a gradient."""
         super().__init__()
         if dense_lookup not in DENSE_LOOKUP_IMPLS:
             raise ValueError(f"dense_lookup {dense_lookup!r}: expected one of {DENSE_LOOKUP_IMPLS}")
@@ -104,10 +111,22 @@ class MOFNet(nn.Module):
         self.cnet = make_encoder(encoder, hidden_dim + context_dim, "batch")
         self.att = Attention(dim=context_dim, dim_head=context_dim)
         self.update_block = SKUpdateBlockMOF(corr_levels, corr_radius, hidden_dim)
+        self.gma_impl = gma_impl
+        self.attn_mem_budget = attn_mem_budget
 
     @property
     def dtype(self) -> torch.dtype:
         return self.att.to_qk.weight.dtype
+
+    @property
+    def gma_impl(self) -> str:
+        return self.update_block.aggregator.impl
+
+    @gma_impl.setter
+    def gma_impl(self, impl: str) -> None:
+        if impl not in GMA_IMPLS:
+            raise ValueError(f"gma_impl {impl!r}: expected one of {GMA_IMPLS}")
+        self.update_block.aggregator.impl = impl
 
     def frame_features(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, H, W, 3] in [0, 1] -> (fnet features [M, H/8, W/8, 256], cnet
@@ -195,11 +214,14 @@ class MOFNet(nn.Module):
         flow = torch.zeros((bn, h8, w8, 4), dtype=torch.float32, device=enc.net.device)
         net = enc.net
         mhs = torch.zeros((b, n, h8, w8, 48), dtype=self.dtype, device=enc.net.device)
+        attn = None
+        if self.gma_impl == "xla" and bn * (h8 * w8) ** 2 * 2 <= self.attn_mem_budget:
+            attn = materialize_attention(enc.q, enc.k, self.dtype)
         for _ in range(self.decoder_depth):
             cf = self._lookup(enc.corr_fwd, flow[..., 0:2]).to(self.dtype)
             cb = self._lookup(enc.corr_bwd, flow[..., 2:4]).to(self.dtype)
             corr = torch.cat([cf, cb], dim=-1)
-            net, mhs, delta = self.update_block.step(net, mhs, enc.inp, corr, flow, enc.q, enc.k, b)
+            net, mhs, delta = self.update_block.step(net, mhs, enc.inp, corr, flow, enc.q, enc.k, b, attn)
             flow = flow + delta.float()
         # Only the last step's mask is read, so the mask head runs once.
         mask = self.update_block.upsample_mask(net).float()

@@ -115,11 +115,12 @@ class SKUpdateBlockMOF(nn.Module):
         )
         self.aggregator = Aggregate(dim=128)
 
-    def step(self, net, mhs, inp, corr, flow, q, k, bs: int):
+    def step(self, net, mhs, inp, corr, flow, q, k, bs: int, attn=None):
         """The refinement step without the mask head (NHWC in and out):
         net, inp [B*N, h, w, 128], corr [B*N, h, w, 2*L*(2r+1)^2], flow
         [B*N, h, w, 4] f32, q/k [B*N, h, w, 128], mhs [B, N, h, w, 48] or
-        None -> (net, mhs, delta_flow)."""
+        None, attn [B*N, hw, hw] materialized GMA probabilities or None ->
+        (net, mhs, delta_flow)."""
         motion, mhs = self.encoder(
             nhwc_to_nchw(flow),
             None if mhs is None else mhs.permute(0, 1, 4, 2, 3),
@@ -127,7 +128,7 @@ class SKUpdateBlockMOF(nn.Module):
             bs,
         )
         motion = nchw_to_nhwc(motion)
-        motion_global = self.aggregator(q, k, motion)
+        motion_global = self.aggregator(q, k, motion, attn)
         x = torch.cat([net, inp, motion, motion_global], dim=-1)
         net = nchw_to_nhwc(self.gru(nhwc_to_nchw(x)))
         delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))

@@ -461,12 +461,16 @@ extern "C" int tf_flash_attention_fwd(int dtype, const void* q, const void* k,
     CUtensorMap tq, tk, tv;
     if (!qkv_map(&tq, q, B, S) || !qkv_map(&tk, k, B, S) || !qkv_map(&tv, v, B, S))
       return (int)cudaErrorInvalidValue;
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t rc = cudaFuncSetAttribute(
-          flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    // A function's shared-memory limit is set per device: once for each
+    // card this process launches on.
+    static bool configured[64] = {};
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (dev >= 64 || !configured[dev]) {
+      rc = cudaFuncSetAttribute(flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
       if (rc != cudaSuccess) return (int)rc;
-      configured = true;
+      if (dev < 64) configured[dev] = true;
     }
     const dim3 grid((unsigned)((S + kBlockM - 1) / kBlockM), (unsigned)B);
     flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(

@@ -21,6 +21,7 @@ from typing import List, Sequence
 
 import torch
 
+from ._nograd import refuses_gradient
 from .denselookup import check_volume_levels, launch_volume_patch
 
 
@@ -41,6 +42,7 @@ def band_patch_levels_plain(vols: Sequence[torch.Tensor], rrs: Sequence[torch.Te
     return [band_patch_level_plain(v, rr, cc) for v, rr, cc in zip(vols, rrs, ccs)]
 
 
+@refuses_gradient
 def band_patch_levels(vols: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
                       ccs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Every level of one lookup: vols [B, lh, Nq, lw] (bf16 or f32) + per

@@ -32,6 +32,7 @@ from typing import List, Sequence
 import torch
 
 from ._build import check_launch, library
+from ._nograd import refuses_gradient
 
 MAX_LEVELS = 8
 MAX_RADIUS = 14
@@ -114,6 +115,7 @@ def _check(volumes: Sequence[torch.Tensor], flow: torch.Tensor) -> None:
             raise ValueError("volumes must be contiguous")
 
 
+@refuses_gradient
 def dense_lookup(
     volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0
 ) -> torch.Tensor:
@@ -267,6 +269,7 @@ def dense_patch_levels_plain(volumes: Sequence[torch.Tensor], rrs: Sequence[torc
     return [dense_patch_level_plain(v, rr, cc) for v, rr, cc in zip(volumes, rrs, ccs)]
 
 
+@refuses_gradient
 def dense_patch_levels(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
                        ccs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Every level of one lookup: volumes [B*Nq, lh, lw] (bf16 or f32) +

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from ._build import check_launch, library
+from ._nograd import refuses_gradient
 
 HEAD_DIM = 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -48,6 +49,7 @@ def _lib():
     return fn
 
 
+@refuses_gradient
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v for [B, S, 128] tensors of one dtype (bf16 or f32).
     CPU tensors: the plain version; CUDA tensors: the kernel."""

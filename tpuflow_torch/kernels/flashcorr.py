@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ._nograd import refuses_gradient
 from .flashcorr2 import corr_patch, flash2_patch_level_plain
 
 
@@ -25,6 +26,7 @@ from .flashcorr2 import corr_patch, flash2_patch_level_plain
 flash_patch_level_plain = flash2_patch_level_plain
 
 
+@refuses_gradient
 def flash_patch_level(
     f1: torch.Tensor, f2l: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
     *, grid_w: Optional[int] = None,

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from ._build import check_launch, library
+from ._nograd import refuses_gradient
 from .denselookup import check_patch_indices
 
 MAX_SIDE = 16          # both index vectors of a query fit one warp
@@ -159,6 +160,7 @@ def corr_patch(wrapper, plain, f1, f2l, rr, cc, grid_w: Optional[int] = None) ->
     return out
 
 
+@refuses_gradient
 def flash2_patch_level(
     f1: torch.Tensor, f2l: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
     *, grid_w: Optional[int] = None,

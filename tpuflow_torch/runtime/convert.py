@@ -9,6 +9,8 @@ _rewrite_videoflow_key) with the table below, and its layouts converted:
 conv kernels HWIO -> OIHW, Dense [in, out] -> [out, in], LayerNorm and
 GroupNorm `scale` -> `weight`.  Twins encoders gain the upstream `.svt.`
 scope; the cnn encoder's `layer{i}_{j}` become `layer{i}.{j}`.
+`flax_tree_from_state_dict` is the inverse (the reference's rewrite itself),
+which the native checkpoints of runtime/checkpoint.py are written with.
 """
 
 from __future__ import annotations
@@ -44,6 +46,21 @@ _FLAX_TO_TORCH = (
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
+# upstream torch module path -> flax module path (dotted): the reference's
+# _rewrite_videoflow_key (tpuflow/runtime/convert.py:132), which its MemFlow
+# table shares.
+_TORCH_TO_FLAX = (
+    (r"^(fnet|cnet)\.svt\.", r"\1."),
+    (r"\.patch_embeds\.(\d+)\.", r".patch_embeds_\1."),
+    (r"\.pos_block\.(\d+)\.proj\.0\.", r".pos_block_\1.proj_0."),
+    (r"\.blocks\.(\d+)\.(\d+)\.", r".blocks_\1_\2."),
+    (r"\.conv_list\.(\d+)\.", r".conv_list_\1."),
+    (r"\.(ffn1|ffn2)\.(\d+)\.", r".\1_\2."),
+    (r"\.mask\.(\d+)\.", r".mask_\1."),
+    (r"\.layer(\d+)\.(\d+)\.", r".layer\1_\2."),
+    (r"^update_block\.", "iteration.update_block."),
+)
+
 
 def torch_key_from_flax(path: str) -> str:
     """'params/fnet/blocks_0_1/attn/kv/kernel' -> 'fnet.svt.blocks.0.1.attn.kv.weight'."""
@@ -72,6 +89,46 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             val = val.reshape(1, 1, -1, 1, 1)             # channels-last -> second
         out[torch_key_from_flax(path)] = torch.from_numpy(np.ascontiguousarray(val))
     return out
+
+
+def flax_path_from_torch(key: str, ndim: int) -> str:
+    """'fnet.svt.blocks.0.1.attn.kv.weight' (a tensor of `ndim` dims) ->
+    'params/fnet/blocks_0_1/attn/kv/kernel'; a `weight` is a conv or dense
+    `kernel` at 4 or 2 dims, else a norm's `scale`."""
+    module, leaf = key.rsplit(".", 1)
+    module += "."
+    for pattern, repl in _TORCH_TO_FLAX:
+        module = re.sub(pattern, repl, module)
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return "params/" + module.rstrip(".").replace(".", "/") + "/" + leaf
+
+
+def flax_tree_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """The port's state dict (any dtype and device) -> the JAX package's
+    param tree {'params': {...}} of float32 numpy arrays in flax layouts:
+    the inverse of `state_dict_from_jax`, checked key by key."""
+    tree: Dict = {}
+    for key, val in state_dict.items():
+        arr = val.detach().float().cpu().numpy()
+        path = flax_path_from_torch(key, arr.ndim)
+        if torch_key_from_flax(path) != key:
+            raise ValueError(f"{key!r} has no flax name (rewritten to {path!r})")
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)              # OIHW -> HWIO
+        elif leaf == "kernel" and arr.ndim == 2:
+            arr = arr.T                                   # [out, in] -> [in, out]
+        elif leaf == "init_hidden_state":
+            arr = arr.reshape(1, 1, 1, 1, -1)             # channels-second -> last
+        node = tree
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        if parts[-1] in node:
+            raise ValueError(f"two tensors map to {path!r}")
+        node[parts[-1]] = np.ascontiguousarray(arr)
+    return tree
 
 
 def load_torch_state_dict(path: str, ignore: Sequence[str] = VIDEOFLOW_IGNORE) -> Dict[str, torch.Tensor]:

@@ -32,10 +32,20 @@ model's memory across a clip, frame i's flow from the pair (i-1, i);
 frames on an empty memory, as the reference's per-call inference does; the
 tile entry points run whole frames through `compute_flow` (MemFlow never
 tiles).
+
+`mesh` (runtime/sharding.py): each slot of its 'data' axis gets a replica of
+the model on the slot's device (the first slot's is `model` itself), and
+every batched dispatch of the VideoFlow entries is split over the replicas,
+padded to a multiple of the axis by repeating its last window or tile, as
+the JAX engine pads its sharded batches; the padded rows are cut before any
+flow is pasted or returned.  The kernels run per replica on its shard, the
+counterpart of the JAX package's shard_map around its kernels.  MemFlow's
+entries run on the first slot.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 from typing import Dict, List, Optional, Sequence
@@ -50,8 +60,10 @@ from ..core.memflownet import CARRY_CLAMP, MemFlowNet
 from ..core.mofnet import BOFNet, MOFNet
 from ..core.padding import pad_dims, pad_frames_edge
 from .convert import VIDEOFLOW_IGNORE, load_torch_state_dict
+from .checkpoint import is_native_checkpoint, load_params
 from .convert_memflow import MEMFLOW_IGNORE
 from .device import resolve_device
+from .sharding import Mesh, split_batch
 from .tiles import (
     calculate_tile_grid,
     extract_tile_group,
@@ -88,8 +100,8 @@ def build_model(
     'bof', for `cfg` on `device` in `dtype` (default: bf16 on the card, f32
     on the CPU), parameters uninitialized until loaded.  `encoder=None`
     follows cfg.encoder ('twins' or 'cnn').  `dense_lookup`: how a
-    DenseCorrPyramid is looked up ('auto' = the fused kernel K1; see
-    MOFNet)."""
+    DenseCorrPyramid is looked up ('auto' = the fused kernel K1, 'patch',
+    'xla'; see MOFNet)."""
     dev = resolve_device(device)
     kw = dict(
         corr_levels=cfg.corr_levels,
@@ -147,10 +159,13 @@ class _Fetch:
     def __init__(self, x: torch.Tensor):
         self.event = None
         if x.device.type == "cuda":
-            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            self.host.copy_(x, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            # On x's card: its stream holds the copy and the event (a mesh's
+            # replicas run on cards other than the current one).
+            with torch.cuda.device(x.device):
+                self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                self.host.copy_(x, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
         else:
             self.host = x
 
@@ -160,9 +175,26 @@ class _Fetch:
         return self.host.numpy()
 
 
+def _gather(fetches: List[_Fetch]) -> np.ndarray:
+    """The replicas' fetched shards, concatenated in slot order."""
+    if len(fetches) == 1:
+        return fetches[0].result()
+    return np.concatenate([f.result() for f in fetches])
+
+
+class _FetchAll:
+    """The fetches of one dispatch's shards; `result()` concatenates them."""
+
+    def __init__(self, fetches: List[_Fetch]):
+        self.fetches = fetches
+
+    def result(self) -> np.ndarray:
+        return _gather(self.fetches)
+
+
 class FlowEngine:
     """Optical-flow engine for VideoFlow (MOF and BOF) and MemFlow on one
-    device."""
+    device, or over the 'data' axis of a mesh."""
 
     def __init__(
         self,
@@ -173,27 +205,36 @@ class FlowEngine:
         device="cuda",
         dtype: Optional[torch.dtype] = None,
         dense_lookup: str = "auto",
+        mesh: Optional[Mesh] = None,
     ):
-        """`params`: a state dict with upstream names (loaded by load_model).
-        `device`: 'cuda' (default) or 'cpu'.  `dtype`: compute dtype
+        """`params`: a state dict with upstream names, or a native checkpoint's
+        (loaded by load_model).  `device`: 'cuda' (default) or 'cpu'; with a
+        `mesh`, its first 'data' slot's device.  `dtype`: compute dtype
         (default bf16 on the card, f32 on the CPU).  `dense_lookup`: see
-        build_model."""
+        build_model.  `mesh`: split batched dispatches over its 'data' axis
+        (module docstring)."""
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.data_devices()[0] if mesh is not None else device)
         self.model = build_model(config, encoder, dtype, self.device, dense_lookup)
         self.params = params
         self.seed = seed
         self._loaded = False
+        self._replicas: Optional[List] = None
         # MemFlow: the memory after the last stream_flows call, on the device.
         self.memory = None
 
     def load_model(
         self, checkpoint_path: Optional[str] = None, allow_random_init: bool = False
     ) -> str:
-        """Load weights: `params` given at construction, else a `.pth` at
-        `checkpoint_path` (default: the config's checkpoint path), else —
+        """Load weights: `params` given at construction, else the checkpoint
+        at `checkpoint_path` (default: the config's checkpoint path), routed
+        by its suffix as the JAX engine routes it (`.msgpack` / `.tpuflow`:
+        the native format of runtime/checkpoint.py; anything else a torch
+        `.pth`), else —
         only with `allow_random_init=True` or the RANDOM_INIT sentinel —
         seeded random weights.  A missing checkpoint raises."""
+        self._replicas = None
         if self.params is not None:
             self.model.load_state_dict(self.params, strict=True)
             self._loaded = True
@@ -202,8 +243,14 @@ class FlowEngine:
             checkpoint_path, allow_random_init = None, True
         path = checkpoint_path or self.config.checkpoint_path
         if path and os.path.exists(path):
-            ignore = MEMFLOW_IGNORE if self.config.model == "memflow" else VIDEOFLOW_IGNORE
-            self.model.load_state_dict(load_torch_state_dict(path, ignore), strict=True)
+            if is_native_checkpoint(path):
+                # The JAX package's native file (runtime/checkpoint.py),
+                # validated against this model's names and shapes.
+                state = load_params(path, self.model.state_dict())
+            else:
+                ignore = MEMFLOW_IGNORE if self.config.model == "memflow" else VIDEOFLOW_IGNORE
+                state = load_torch_state_dict(path, ignore)
+            self.model.load_state_dict(state, strict=True)
             self._loaded = True
             return path
         if not allow_random_init:
@@ -245,14 +292,17 @@ class FlowEngine:
         }
 
     def get_memory_usage(self) -> dict:
-        """{card: {allocated_mb, limit_mb}} for every visible card
-        (torch.cuda.memory_allocated, and the card's total from
-        mem_get_info), the JAX engine's keys; an engine on the CPU gets the
-        JAX engine's message for a backend without memory statistics."""
+        """{card: {allocated_mb, limit_mb}} for every visible card, or every
+        card of the mesh (torch.cuda.memory_allocated, and the card's total
+        from mem_get_info), the JAX engine's keys; an engine on the CPU gets
+        the JAX engine's message for a backend without memory statistics."""
         if self.device.type != "cuda":
             return {"message": "Memory tracking not available on this backend"}
+        cards = range(torch.cuda.device_count())
+        if self.mesh is not None:
+            cards = sorted({d.index for d, _ in self._slots()})
         out = {}
-        for i in range(torch.cuda.device_count()):
+        for i in cards:
             _, total = torch.cuda.mem_get_info(i)
             out[f"cuda:{i}"] = {
                 "allocated_mb": torch.cuda.memory_allocated(i) / 1024**2,
@@ -260,21 +310,53 @@ class FlowEngine:
             }
         return out
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+    def _slots(self) -> List:
+        """[(device, model)] per slot of the mesh's 'data' axis, the first
+        this engine's model, the others its copies, made at the first
+        dispatch after load_model; [(device, model)] without a mesh."""
+        if self.mesh is None:
+            return [(self.device, self.model)]
+        if self._replicas is None:
+            devs = [resolve_device(d) for d in self.mesh.data_devices()]
+            # Copied as normal tensors, also from inside an inference-mode
+            # entry: inference tensors take other CPU kernels.
+            with torch.inference_mode(False):
+                self._replicas = [(devs[0], self.model)] + [(d, copy.deepcopy(self.model).to(d)) for d in devs[1:]]
+        return self._replicas
+
+    def _data_axis(self) -> int:
+        """Slots of the mesh's 'data' axis (1 without a mesh)."""
+        return 1 if self.mesh is None else len(self.mesh.data_devices())
+
+    def _pad_to_axis(self, rows: np.ndarray):
+        """rows padded along dim 0 to a multiple of the data axis by
+        repeating the last row (tpuflow/runtime/engine.py:452-459) -> (rows,
+        the number of padded rows)."""
+        pad = (-len(rows)) % self._data_axis()
+        if pad:
+            rows = np.concatenate([rows, np.repeat(rows[-1:], pad, 0)])
+        return rows, pad
+
+    def _upload(self, frames: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
         """Frames [M, h, w, 3] (uint8 0..255 or float 0..1) -> f32 [M, ph,
-        pw, 3] in [0, 1] on the device, edge-padded to a multiple of 8."""
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        pw, 3] in [0, 1] on `device` (default the engine's), edge-padded to a
+        multiple of 8."""
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(device or self.device)
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         return pad_frames_edge(x, pad_dims(x.shape[1], x.shape[2], 8))
 
     def _window_flows_all(self, windows: np.ndarray) -> np.ndarray:
         """Untiled forward: windows [B, T, h, w, 3] (uint8 0..255 or float
-        0..1) -> forward flows of ALL interior frames [B, T-2, h, w, 2]."""
+        0..1) -> forward flows of ALL interior frames [B, T-2, h, w, 2].  The
+        windows split over the replicas (B a multiple of the data axis)."""
         b, t, h, w = windows.shape[:4]
         pt, _, pl, _ = pad_dims(h, w, 8)
-        x = self._upload(windows.reshape(b * t, h, w, 3))
-        up_fwd, _ = self.model(x.reshape(b, t, *x.shape[1:]))
-        return up_fwd[:, :, pt : pt + h, pl : pl + w].cpu().numpy()
+        fetches = []
+        for (dev, model), rows in zip(self._slots(), split_batch(windows, self._data_axis())):
+            x = self._upload(rows.reshape(-1, h, w, 3), dev)
+            up_fwd, _ = model(x.reshape(len(rows), t, *x.shape[1:]))
+            fetches.append(_Fetch(up_fwd[:, :, pt : pt + h, pl : pl + w]))
+        return _gather(fetches)
 
     def compute_flow(self, frames: Sequence[np.ndarray], frame_idx: int) -> np.ndarray:
         """Forward flow [H, W, 2] of frame `frame_idx` from its centred window
@@ -302,8 +384,9 @@ class FlowEngine:
                 out.append(flow[0, pt : pt + h, pl : pl + w].cpu().numpy())
             return np.stack(out)
         wins = np.stack([centered_window_indices(len(arr), i, t) for i in frame_indices])
-        flows = self._window_flows_all(arr[wins])
-        return flows[:, flows.shape[1] // 2]
+        windows, pad = self._pad_to_axis(arr[wins])
+        flows = self._window_flows_all(windows)
+        return flows[: len(flows) - pad, flows.shape[1] // 2]
 
     @torch.inference_mode()
     def compute_flows_strided(
@@ -313,7 +396,9 @@ class FlowEngine:
         at -1, T-3, 2T-5, ... (indices clipped to the clip) and every interior
         flow is kept, so T-2 times fewer windows run than at stride 1.
         Batches hold `window_batch` windows; the last one holds what is
-        left.  A VideoFlow mode."""
+        left.  Under a mesh window_batch is rounded up to a multiple of the
+        data axis (tpuflow/runtime/engine.py:305-313) and the last batch
+        padded to one.  A VideoFlow mode."""
         if self.config.model == "memflow":
             raise ValueError("compute_flows_strided is a VideoFlow mode; MemFlow streams with stream_flows")
         self._require_loaded()
@@ -322,22 +407,25 @@ class FlowEngine:
         t = self.config.sequence_length
         stride = t - 2
         starts = list(range(-1, n - 1, stride))
+        window_batch += (-window_batch) % self._data_axis()
         flows = np.empty((n, h, w, 2), np.float32)
         for b0 in range(0, len(starts), window_batch):
             chunk = starts[b0 : b0 + window_batch]
             idx = np.stack([np.clip(np.arange(a, a + t), 0, n - 1) for a in chunk])
-            out = self._window_flows_all(arr[idx])
+            out = self._window_flows_all(self._pad_to_axis(arr[idx])[0])
             for j, a in enumerate(chunk):
                 for k in range(stride):
                     if 0 <= a + 1 + k < n:
                         flows[a + 1 + k] = out[j, k]
         return flows
 
-    def _tile_features(self, frame: np.ndarray, tiles_info, idxs, overlap: int):
+    def _tile_features(self, frame: np.ndarray, tiles_info, idxs, overlap: int, slot=None):
         """One frame's tiles of one shape group -> (feats, ctx), each
-        [G, h8, w8, 256] on the device."""
+        [G, h8, w8, 256], by the model of `slot` (device, model) on its
+        device (default the engine's)."""
+        dev, model = slot or (self.device, self.model)
         tiles = extract_tile_group(frame[None], tiles_info, idxs, overlap)[:, 0]
-        return self.model.frame_features(self._upload(tiles))
+        return model.frame_features(self._upload(tiles, dev))
 
     def _middle_flow(self, up_fwd: torch.Tensor, th: int, tw: int) -> torch.Tensor:
         """Forward flows of the interior frames [B, T-2, H8, W8, 2] -> the
@@ -346,11 +434,13 @@ class FlowEngine:
         pt, _, pl, _ = pad_dims(th, tw, 8)
         return up_fwd[:, (self.config.sequence_length - 2) // 2, pt : pt + th, pl : pl + tw]
 
-    def _window_flow(self, feats: torch.Tensor, ctxs: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    def _window_flow(self, feats: torch.Tensor, ctxs: torch.Tensor, th: int, tw: int, model=None) -> torch.Tensor:
         """Per-frame features of windows stacked on the batch axis (feats and
         ctxs [B, T, h8, w8, C]) -> the middle interior frame's forward flow
-        per batch row [B, th, tw, 2], on the device."""
-        up_fwd, _ = self.model.refine(self.model.encode_from_features(feats, ctxs))
+        per batch row [B, th, tw, 2], on their device, by `model` (default
+        the engine's)."""
+        model = model or self.model
+        up_fwd, _ = model.refine(model.encode_from_features(feats, ctxs))
         return self._middle_flow(up_fwd, th, tw)
 
     def _tiling(self, h: int, w: int, tile_size: int):
@@ -370,8 +460,11 @@ class FlowEngine:
     ) -> np.ndarray:
         """Tile-mode forward flow [H, W, 2] of frame `frame_idx` from its
         centred window, each shape group's tiles `tile_batch` at a time (the
-        last chunk holds what is left).  A frame that fits one tile, and any
-        MemFlow frame, is compute_flow's."""
+        last chunk holds what is left).  Under a mesh tile_batch is rounded
+        up to a multiple of the data axis and each chunk padded to one
+        (tpuflow/runtime/engine.py:490-510), and each replica computes the
+        features and the flows of its tiles.  A frame that fits one tile,
+        and any MemFlow frame, is compute_flow's."""
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
@@ -379,16 +472,22 @@ class FlowEngine:
             return self.compute_flow(arr, frame_idx)
         tiles_info, groups = self._tiling(h, w, tile_size)
         win = centered_window_indices(n, frame_idx, self.config.sequence_length)
+        tile_batch += (-tile_batch) % self._data_axis()
         tile_flows: List = [None] * len(tiles_info)
         for (th, tw), idxs in groups.items():
             ph, pw = th + 2 * overlap, tw + 2 * overlap
             group_flows = np.empty((len(idxs), ph, pw, 2), np.float32)
             for c0 in range(0, len(idxs), tile_batch):
                 chunk = idxs[c0 : c0 + tile_batch]
-                per_frame = {f: self._tile_features(arr[f], tiles_info, chunk, overlap) for f in set(win)}
-                feats = torch.stack([per_frame[f][0] for f in win], 1)
-                ctxs = torch.stack([per_frame[f][1] for f in win], 1)
-                group_flows[c0 : c0 + len(chunk)] = _Fetch(self._window_flow(feats, ctxs, ph, pw)).result()
+                padded, _ = self._pad_to_axis(np.asarray(chunk))
+                fetches = []
+                for slot, shard in zip(self._slots(), split_batch(padded, self._data_axis())):
+                    per_frame = {f: self._tile_features(arr[f], tiles_info, [int(i) for i in shard], overlap, slot)
+                                 for f in set(win)}
+                    feats = torch.stack([per_frame[f][0] for f in win], 1)
+                    ctxs = torch.stack([per_frame[f][1] for f in win], 1)
+                    fetches.append(_Fetch(self._window_flow(feats, ctxs, ph, pw, slot[1])))
+                group_flows[c0 : c0 + len(chunk)] = _gather(fetches)[: len(chunk)]
             for j, ti in enumerate(idxs):
                 tile_flows[ti] = group_flows[j]
         return paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
@@ -403,18 +502,26 @@ class FlowEngine:
         keep no volumes (FlashCorr2, 'auto' above the materialization
         threshold) are not clamped.  As tpuflow/runtime/engine.py:614, with
         the port's own volume layout (core/corr.py dense_volume_bytes; its
-        band layout is as large as the dense one)."""
-        if wb <= 1:
+        band layout is as large as the dense one).  Under a mesh the budget
+        holds per card, shared by the replicas on it, and the batch stays a
+        multiple of the data axis."""
+        slots = self._data_axis()
+        if wb <= slots:
             return wb
         env = os.environ.get(WB_BUDGET_ENV)
-        if env is not None:
-            budget = float(env)
-        elif self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
-            budget = free * (1.0 - WB_ACTIVATION_SHARE)
-        else:
+        if env is None and self.device.type != "cuda":
             return wb
+        devices = [dev for dev, _ in self._slots()]
+        budgets = []
+        for dev in devices:
+            if env is not None:
+                card = float(env)
+            else:
+                free, _ = torch.cuda.mem_get_info(dev)
+                free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+                card = free * (1.0 - WB_ACTIVATION_SHARE)
+            budgets.append(card / devices.count(dev))
+        budget = min(budgets)
         impl, model = self.config.corr_impl, self.model
         worst = 0
         for (th, tw), idxs in groups.items():
@@ -427,7 +534,7 @@ class FlowEngine:
                 worst = max(worst, per_win)
         if worst == 0:
             return wb
-        fit = max(1, int(budget // worst))
+        fit = max(1, int(budget // worst)) * slots
         if fit < wb:
             print(
                 f"[tpuflow] window_batch {wb} -> {fit}: dense correlation volumes are "
@@ -454,7 +561,12 @@ class FlowEngine:
         after the next batch has been queued.  A clip whose frames fit one
         tile, and a MemFlow clip, runs compute_flow per frame.
         `progress_cb(i, flow)` is called with each frame's flow as it is
-        pasted, in frame order."""
+        pasted, in frame order.  Under a mesh window_batch is at least the
+        data axis and a multiple of it, the last batch is padded with its
+        last window (tpuflow/runtime/engine.py:697-709, :752-756), each
+        frame's features are computed once on the first slot, and each
+        replica refines its share of the batch's windows; the pairs loop is
+        single-device, as in the JAX engine."""
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
@@ -469,7 +581,10 @@ class FlowEngine:
                     progress_cb(i, flows_out[i])
             return flows_out
         wb = max(1, window_batch)
-        if wb == 1 and os.environ.get("TPUFLOW_STRIDE1", "trio") == "pairs":
+        d = self._data_axis()
+        if self.mesh is not None:
+            wb = max(wb, d) + (-max(wb, d)) % d
+        elif wb == 1 and os.environ.get("TPUFLOW_STRIDE1", "trio") == "pairs":
             # Slower in the JAX package's measurements (tpuflow/runtime/
             # engine.py:710-717); kept for its numerics, as there.
             return self._stride1_pairs_loop(arr, tile_size, overlap, progress_cb)
@@ -494,6 +609,10 @@ class FlowEngine:
         for i0 in range(0, n, wb):
             outs = list(range(i0, min(n, i0 + wb)))
             wins = [centered_window_indices(n, i, t) for i in outs]
+            if self.mesh is not None and len(wins) % d:
+                # Padded windows repeat the last one; finalize reads only
+                # the rows of `outs`.
+                wins += [wins[-1]] * (-len(wins) % d)
             group_flows = []
             for (th, tw), idxs in groups.items():
                 cache = caches[(th, tw)]
@@ -506,8 +625,12 @@ class FlowEngine:
                 # Window-major: window k's tiles are batch rows k*G .. k*G+G-1.
                 feats = torch.cat([torch.stack([cache[f][0] for f in win], 1) for win in wins])
                 ctxs = torch.cat([torch.stack([cache[f][1] for f in win], 1) for win in wins])
-                flows = self._window_flow(feats, ctxs, th + 2 * overlap, tw + 2 * overlap)
-                group_flows.append((idxs, _Fetch(flows)))
+                # Whole windows per replica: len(wins) is a multiple of d.
+                fetches = []
+                for (dev, model), f_s, c_s in zip(self._slots(), split_batch(feats, d), split_batch(ctxs, d)):
+                    flows = self._window_flow(f_s.to(dev), c_s.to(dev), th + 2 * overlap, tw + 2 * overlap, model)
+                    fetches.append(_Fetch(flows))
+                group_flows.append((idxs, _FetchAll(fetches)))
             # One batch deep: this batch is queued before the last one's
             # flows are waited for and pasted.
             if pending is not None:

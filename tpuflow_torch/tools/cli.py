@@ -9,8 +9,9 @@ flag, default and choice) plus the JAX package's extensions under
 runs on the card; `--device cpu` runs the engine and the ops on the CPU.
 `--interactive` computes the flows if the cache is incomplete and opens the
 flow visualizer (tools/visualizer.py) on the same device.
-`--num-processes > 1` (the multi-host flow pass, ROADMAP.md section 1,
-item 3) is refused.
+`--num-processes N --coordinator HOST:PORT --process-id i` runs this
+process's share of the flow pass on torch.distributed
+(runtime/distributed.py) and writes its slice of the flow cache.
 """
 
 from __future__ import annotations
@@ -79,8 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="[ext] 'center' = reference parity (one middle-frame flow per window); "
              "'interior' = keep all interior-frame flows ((T-2)x throughput)",
     )
-    # Multi-host (the JAX package's flow pass over N hosts): parsed, and
-    # refused by main() with --num-processes > 1 until it is ported.
+    # Multi-process flow pass (torch.distributed; runtime/distributed.py).
     p.add_argument("--coordinator", type=str, default=None,
                    help="[ext] multi-host coordinator address host:port")
     p.add_argument("--num-processes", type=int, default=1,
@@ -171,10 +171,24 @@ def main(argv=None) -> int:
         return launch_interactive(config)
 
     if args.num_processes > 1:
-        raise NotImplementedError(
-            "--num-processes > 1 (the multi-host flow pass) is not ported yet "
-            "(ROADMAP.md section 1, item 3: sharding and torch.distributed)"
-        )
+        # Multi-process flow pass: compute this process's cache slice and
+        # stop.  Rendering is a one-process step over the completed cache
+        # (re-run without the multi-process flags).  --device cpu keeps every
+        # rank on the CPU (gloo); on the card each rank takes its own card,
+        # or shares the one there is (gloo, as NCCL refuses that).
+        import torch.distributed as dist
+
+        from ..runtime.distributed import init_distributed
+        from .pipeline import FlowPipeline
+
+        init_distributed(args.coordinator, args.num_processes, args.process_id,
+                         device="cpu" if config.device == "cpu" else "cuda")
+        try:
+            cache_dir = FlowPipeline(config).compute_flows_distributed()
+        finally:
+            dist.destroy_process_group()
+        print(f"Flow cache complete: {cache_dir}")
+        return 0
 
     from .pipeline import FlowPipeline
 

@@ -26,9 +26,10 @@ Behavioral contracts mirrored (each noted inline):
   TAA uses previous frame's flow              flow_processor.py:1016-1112
   LOD generation after compute                flow_processor.py:1161-1168
 
-Not ported yet, and refused with NotImplementedError: the multi-host flow
-pass (`compute_flows_distributed`) and data parallelism over several
-cards (ROADMAP.md section 1, item 3).
+`data_parallel` > 1 builds a mesh of min(data_parallel, cards) cards
+(runtime/sharding.py) for the engine, as the JAX pipeline does; the
+multi-process flow pass is `compute_flows_distributed` (the CLI's
+--num-processes, runtime/distributed.py).
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ from ..pipeline.cache import FlowCacheManager
 from ..pipeline.filenames import generate_cache_directory, generate_output_filepath
 from ..pipeline.video_io import FrameExtractor
 from ..runtime.device import DeviceManager
+from ..runtime.distributed import gather_host_results, host_window_range, rank, world_size
 from ..runtime.engine import FlowEngine
+from ..runtime.sharding import make_mesh
 
 try:
     import cv2
@@ -160,17 +163,13 @@ class FlowPipeline:
     def __init__(self, config: PipelineConfig, engine: Optional[FlowEngine] = None):
         self.config = config
         self.device = DeviceManager.get_device(config.device)
-        if (
-            engine is None
-            and config.data_parallel > 1
-            and self.device.type == "cuda"
-            and torch.cuda.device_count() > 1
-        ):
-            raise NotImplementedError(
-                f"data_parallel={config.data_parallel} over {torch.cuda.device_count()} cards is not "
-                "ported yet (ROADMAP.md section 1, item 3: sharding and torch.distributed)"
-            )
-        self.engine = engine or FlowEngine(config.model_config(), device=self.device)
+        mesh = None
+        if engine is None and config.data_parallel > 1:
+            n = min(config.data_parallel, torch.cuda.device_count() if self.device.type == "cuda" else 1)
+            if n > 1:
+                mesh = make_mesh(n)
+                print(f"[Parallel] sharding window batches over {n} devices")
+        self.engine = engine or FlowEngine(config.model_config(), device=self.device, mesh=mesh)
         self.cache_manager = FlowCacheManager()
         self.composer = VideoComposer() if VideoComposer is not None else None
         self.model_label = (
@@ -309,11 +308,69 @@ class FlowPipeline:
         return flows  # type: ignore[return-value]
 
     def compute_flows_distributed(self, input_path: Optional[str] = None) -> str:
-        """The JAX package's multi-host flow pass: not ported yet."""
-        raise NotImplementedError(
-            "compute_flows_distributed (the multi-host flow pass) is not ported yet "
-            "(ROADMAP.md section 1, item 3: sharding and torch.distributed)"
+        """Multi-process flow pass (tpuflow/tools/pipeline.py:254-330): each
+        process decodes and computes its own contiguous frame range (with
+        the windows' context, one frame more on the left than the JAX
+        package's, or MemFlow's memory warm-up prefix) and
+        writes its disjoint slice of the shared flow cache; a scalar
+        all-reduce confirms completion.  Rendering stays a one-process step
+        over the completed cache.  Returns the cache directory.  Needs
+        runtime/distributed.init_distributed (the CLI's --num-processes); a
+        single process computes the whole range."""
+        from ..pipeline.video_io import VideoInfo
+
+        c = self.config
+        input_path = input_path or c.input
+        total = VideoInfo(input_path).get_frame_count() - c.start_frame
+        n = min(c.frames, total)
+        half = c.sequence_length // 2
+        # One frame more on the left than a centred window reaches: a slice
+        # that starts at an owned window's first frame would replicate that
+        # window's edge at the front, as at the clip's start, where the whole
+        # clip replicates it at the end (windows.centered_window_indices;
+        # 8 frames over 4 processes, frame 6).  The JAX package decodes
+        # (half, half) and has that fault.
+        context = (half + 1, half)
+        if c.model == "memflow":
+            # The memory ring holds the last `memory_capacity` frames'
+            # tokens: replaying twice that many frames before the first
+            # owned output brings the carried state back to the one-process
+            # stream's; a process whose prefix reaches frame 0 matches it
+            # exactly.
+            warmup = max(half, 2 * self.engine.config.memory_capacity)
+            context = (warmup, half)
+        (dec_lo, dec_hi), (out_lo, out_hi) = host_window_range(n, c.sequence_length, context=context)
+        print(
+            f"[Distributed] process {rank()}/{world_size()}: "
+            f"decode frames [{dec_lo}, {dec_hi}), own flows [{out_lo}, {out_hi})"
         )
+        if c.model == "memflow" and world_size() > 1:
+            print(
+                f"[Distributed] MemFlow memory warm-up: replaying {out_lo - dec_lo} context frames "
+                "before the first owned output (memory converges to the one-process stream)"
+            )
+
+        extractor = FrameExtractor(input_path, fast_mode=c.fast)
+        frames, _, _, _, _ = extractor.extract_frames(
+            max_frames=dec_hi - dec_lo,
+            start_frame=c.start_frame + dec_lo,
+        )
+
+        self.engine.load_model(c.model_path, allow_random_init=c.allow_random_init)
+        cache_dir = self.cache_dir_for(input_path, c.start_frame, n)
+        cache_format = c.save_flow if c.save_flow else "npz"
+
+        # Compute over the decoded slice (context included), keep only the
+        # owned range, write it at the video's frame indices.
+        flows = self.compute_all_flows(frames, cache_dir=None, progress=False)
+        for i in range(out_lo, out_hi):
+            self.cache_manager.save_flow_to_cache(flows[i - dec_lo], cache_dir, i, cache_format)
+
+        done = gather_host_results(out_hi - out_lo)
+        print(f"[Distributed] {done}/{n} flows complete across processes")
+        if done != n:
+            raise RuntimeError(f"Distributed flow pass incomplete: {done}/{n} frames")
+        return cache_dir
 
     # ------------------------------------------------------------------
     # main entry
