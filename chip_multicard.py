@@ -5,6 +5,7 @@ the cards of one host.
     python3 chip_multicard.py              # every visible card (at least 2)
     python3 chip_multicard.py --cards 2    # a mesh of two slots; on a
                                            # one-card machine both are cuda:0
+    python3 chip_multicard.py --phases spatial   # only the phases named
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line); product configuration (Twins, 4 levels, radius 4,
@@ -29,6 +30,15 @@ prints no result line); product configuration (Twins, 4 levels, radius 4,
    --num-processes n --tile` on a 1920x1080 clip of 2n frames, one per
    slot; the union cache bit for bit one process's compute_flows_distributed
    on a copy of the clip; each process's wall.
+4. spatial: runtime/sharding.shard_spatial_forward over ('data' 1,
+   'spatial' n), one strip of the frame's height per slot (34, 34, 34, 33
+   of 135 feature rows on four), on one untiled 1920x1080 window (T = 5,
+   'auto': FlashCorr2 decided on the whole grid), against one card's
+   compute_flow of the same window within chip_smoke's FLOW_MEAN_LIMIT /
+   FLOW_MAX_LIMIT; the wall of both (host clock, every card synchronized,
+   after a warm-up), each card's peak memory during the sharded call, and
+   the bytes the strips took from each other (all across cards when each
+   strip has a card of its own).
 
 Output: progress lines, the card's name and power limit, the device count,
 and last one JSON line of the results.
@@ -99,6 +109,39 @@ def phase_mesh(n: int) -> dict:
            f"{out['mesh_frames_per_s']:.4f} frames/s against one card's {out['one_card_frames_per_s']:.4f} "
            f"(x{out['speedup']:.3f}), bit for bit; {n} untiled windows in {batch_wall:.3f} s, bit for bit")
     del one, mesh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial(n: int) -> dict:
+    from tpuflow_torch.config import ModelConfig
+    from tpuflow_torch.runtime.engine import FlowEngine
+    from tpuflow_torch.runtime.sharding import Mesh, shard_spatial_forward
+
+    one = FlowEngine(ModelConfig(), seed=cs.SEED, device=slot_devices(1)[0])
+    one.load_model(allow_random_init=True)
+    t = one.config.sequence_length
+    frames = cs.synthetic_clip(t, cs.MAIN_H, cs.MAIN_W, cs.SEED + 5)
+    one.compute_flow(frames, t // 2)                                  # warm-up
+    ref, ref_wall = timed(lambda: one.compute_flow(frames, t // 2))
+    sharded = shard_spatial_forward(one.model, Mesh([slot_devices(n)], ("data", "spatial")), 5, 2)
+    params = one.model.state_dict()
+    x = torch.from_numpy(frames[None]).to(one.device).float() / 255.0
+    with torch.inference_mode():
+        sharded(params, x)                                            # warm-up
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+        (fwd, _), wall = timed(lambda: sharded(params, x))
+    peaks = {f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 2**30 for i in range(torch.cuda.device_count())}
+    flow = fwd[0, fwd.shape[1] // 2].float().cpu().numpy()
+    agree = cs.check_flows_agree(f"spatial over {n} slots vs one card's compute_flow", flow, ref)
+    fetched = sum(sharded.groups[0].fetched_bytes)
+    out = {"slots": n, "strip_rows": sharded.groups[0].rows, "wall_s": wall, "one_card_wall_s": ref_wall,
+           "speedup": ref_wall / wall, "peak_gib": peaks, "bytes_between_strips": fetched, **agree}
+    cs.log(f"spatial over {n} slots {[str(d) for d in slot_devices(n)]}: one 1920x1080 window in {wall:.3f} s "
+           f"against one card's {ref_wall:.3f} s (x{ref_wall / wall:.3f}), strips {out['strip_rows']}, peak GiB "
+           f"{ {k: round(v, 2) for k, v in peaks.items()} }, {fetched / 1e6:.1f} MB between strips")
+    del one, sharded
     torch.cuda.empty_cache()
     return out
 
@@ -222,12 +265,20 @@ def main() -> int:
     if args[:1] == [TRAIN_ARG]:
         return train_rank(int(args[1]), int(args[2]), args[3], args[4])
     smi = cs.phase_environment()
-    n = int(args[1]) if args[:1] == ["--cards"] else torch.cuda.device_count()
+    opts = dict(zip(args[::2], args[1::2]))
+    if len(args) % 2 or set(opts) - {"--cards", "--phases"}:
+        raise SystemExit("usage: python3 chip_multicard.py [--cards N] [--phases mesh,train,flow_pass,spatial]")
+    n = int(opts.get("--cards", torch.cuda.device_count()))
     if n < 2:
         raise SystemExit("chip_multicard: needs at least 2 slots (--cards 2 repeats the one card)")
+    phases = {"mesh": phase_mesh, "train": phase_train, "flow_pass": phase_flow_pass, "spatial": phase_spatial}
+    names = opts.get("--phases", ",".join(phases)).split(",")
+    if set(names) - set(phases):
+        raise SystemExit(f"chip_multicard: unknown phases {set(names) - set(phases)}")
     cs.phase_build()
-    out = {"slots": n, "devices": [str(d) for d in slot_devices(n)],
-           "mesh": phase_mesh(n), "train": phase_train(n), "flow_pass": phase_flow_pass(n)}
+    out = {"slots": n, "devices": [str(d) for d in slot_devices(n)]}
+    for name in names:
+        out[name] = phases[name](n)
     print(smi)
     print("device count", torch.cuda.device_count())
     print(json.dumps(out))

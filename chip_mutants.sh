@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and nineteen deliberately broken, and prints for each copy whether each
-# phase passed.
+# and twenty-three deliberately broken, and prints for each copy whether
+# each phase passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
 #   level      corr.py: the deepest pyramid level sampled at level 2's
@@ -46,7 +46,18 @@
 #   gradavg    tpuflow_torch/runtime/sharding.py: shard_train_step averages
 #              the replicas' gradients with equal weights, not by shard
 #              size                       -> the train phase fails
-# The unbroken copy must pass all fourteen phases.  Needs one CUDA card and
+#   halo       tpuflow_torch/core/strips.py: a strip's convolutions read
+#              zeros in place of the neighbouring strips' rows
+#                                         -> the spatial phase fails
+#   k1row0     dense_lookup.cu: K1 places the queries at their grid row,
+#              ignoring row0               -> K1's check and the spatial
+#              phase fail
+#   k2keys     flash_attention.cu: K2 reads only as many key tiles as the
+#              query count needs           -> K2's check and the spatial
+#              phase fail
+#   stripgrid  corr.py: make_corr decides on the strip's query grid, not
+#              the frame's                 -> the spatial phase fails
+# The unbroken copy must pass all fifteen phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh                 # from the repository root
@@ -62,7 +73,7 @@ cs.phase_environment(); cs.phase_build()
 copy, phases = sys.argv[1], sys.argv[2].split(",")
 dev = torch.device("cuda", torch.cuda.current_device())
 engine = kernels = None
-if "formulations" in phases or "untiled" in phases or "dataparallel" in phases:
+if "formulations" in phases or "untiled" in phases or "dataparallel" in phases or "spatial" in phases:
     from tpuflow_torch.config import ModelConfig
     from tpuflow_torch.runtime.engine import FlowEngine
     from tpuflow_torch.kernels.bandlookup import band_patch_level
@@ -88,6 +99,7 @@ runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "pipeline": lambda: cs.phase_pipeline(cs.kernel_counters()),
         "correction": lambda: cs.phase_correction(cs.kernel_counters()),
         "dataparallel": lambda: cs.phase_data_parallel(engine, kernels),
+        "spatial": lambda: cs.phase_spatial(engine, kernels),
         "train": lambda: cs.phase_train(cs.kernel_counters(), dev),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
         "k3": lambda: cs.check_corr_patch(dev, *k3),
@@ -107,7 +119,8 @@ for name in phases:
 
 status=0
 copies=${*:-unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
-                k1stride tilebatch readermask taaflow phaseunwrap nccmean meshorder gradavg}
+                k1stride tilebatch readermask taaflow phaseunwrap nccmean meshorder gradavg halo k1row0 k2keys \
+                stripgrid}
 for copy in $copies; do
     rm -rf "$work/copy"
     mkdir "$work/copy"
@@ -116,7 +129,7 @@ for copy in $copies; do
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline,correction,dataparallel,train ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline,correction,dataparallel,spatial,train ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -155,11 +168,19 @@ for copy in $copies; do
                    sed -i 's/return np.concatenate(\[f.result() for f in fetches\])/return np.concatenate([f.result() for f in fetches[::-1]])/' $edited ;;
         gradavg)   phases=train; edited=tpuflow_torch/runtime/sharding.py
                    sed -i 's|share = w.shape\[0\] / n|share = 1 / len(self.devices)|' $edited ;;
+        halo)      phases=spatial; edited=tpuflow_torch/core/strips.py
+                   sed -i 's/rows = strip.fetch(x, 2, start - top, stop - s - top + k)/rows = F.pad(x, (0, 0, top, k - s - top))/' $edited ;;
+        k1row0)    phases=k1,spatial; edited=tpuflow_torch/csrc/dense_lookup.cu
+                   sed -i 's/const int y = gy + row0;/const int y = gy;/' $edited ;;
+        k2keys)    phases=k2,spatial; edited=tpuflow_torch/csrc/flash_attention.cu
+                   sed -i 's/const int n_tiles = (Sk + kBlockN - 1) \/ kBlockN;/const int n_tiles = (min(Sq, Sk) + kBlockN - 1) \/ kBlockN;/' $edited ;;
+        stripgrid) phases=spatial; edited=tpuflow_torch/core/corr.py
+                   sed -i 's/    if fmap2.shape\[1\] \* fmap2.shape\[2\] > materialize_threshold:/    if fmap1.shape[1] * fmap1.shape[2] > materialize_threshold:/' $edited ;;
     esac
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|^correction|^data parallel|^train|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|^correction|^data parallel|^spatial|^strip probe|^train|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

@@ -26,7 +26,11 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    its one-level and its all-levels entry, at radius 0, 1, 4 and 14 with
    patches across every plane edge, at the tile shape (timed on the device
    and on the host clock), and on a 4.5 GB level read beyond element 2^31;
-   each also on ragged shapes.
+   each also on ragged shapes.  For spatial sharding: K1 from a row0 > 0
+   (a strip of the tile's grid, a ragged last strip, and ragged strips
+   across every plane edge), K2 with query and key counts that differ (one
+   strip of the untiled window, [3, 8160, 128] queries against [3, 32400,
+   128] keys, timed; ragged pairs).
 4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
    synthetic 1920x1080 frames at the full configuration (Twins-SVT, 4
    levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
@@ -104,6 +108,18 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    compute_flows_strided on seven frames, bit for bit the one-replica
    window_batch 1; frames/s, peak memory and launches (two replicas on one
    card show correctness, not a speed-up).
+16b. spatial: shard_spatial_forward (one frame's height over the mesh's
+   'spatial' slots, a host thread per slot) on the main engine's weights
+   over meshes that list the card several times: ('data' 1, 'spatial' 4)
+   on one untiled 1080p window (strips of 34, 34, 34, 33 feature rows;
+   'auto' decided on the whole grid: K3 384 and K2 48 launches) against
+   compute_flow, and ('data' 2, 'spatial' 2) on two 640x480 windows (K1
+   from row0 0 and 30: 96 launches) against compute_flow_batch, each
+   within the flow limits, with its wall, the card's peak memory and the
+   bytes the strips fetched from each other; then K1 from each strip's
+   row0 on the model's own volumes, bit for bit the unsharded rows, and K2
+   from each strip's queries to the frame's keys against the unsharded
+   rows.
 17. checkpoint: save_params of the main engine's weights and load_model of
    the native file into a fresh engine, weights and flows bit for bit; the
    converter `python3 -m tpuflow_torch.runtime.checkpoint` on a .pth.
@@ -152,6 +168,7 @@ TILE_QUERIES = (6, 135, 120)      # 2 tiles x 3 interior frames x the /8 grid of
 FEATURE_DIM = 256
 # K2's bf16 ragged key counts: partial and whole 128-row tiles around 1 and 2.
 K2_RAGGED_S = (1, 63, 64, 65, 127, 128, 129, 200)
+STRIP_ROWS = 34                   # /8 rows of the first strips of 135 over four 'spatial' slots
 PARITY_SHAPE = (5, 128, 256)      # frames, H, W: two 128x128 tiles at tile_size 128
 # Two bf16 runs of one window that round differently (another formulation,
 # another batch size) are held to these shares of the mean |flow|.  Sound
@@ -265,12 +282,12 @@ def random_volumes(g, dev, n, h, w, levels, dtype):
     return vols
 
 
-def window_edges(flow, r: int, dims, offset: int) -> list:
+def window_edges(flow, r: int, dims, offset: int, row0: int = 0) -> list:
     """For each level (lh, lw) of `dims` sampled at 2^(l + offset): whether
     some query's (2r+2)^2 patch straddles the plane's left, right, top and
-    bottom edge."""
+    bottom edge (the query grid's rows at image rows row0 ..)."""
     b, h, w, _ = flow.shape
-    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device, dtype=torch.float32),
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + h, device=flow.device, dtype=torch.float32),
                             torch.arange(w, device=flow.device, dtype=torch.float32), indexing="ij")
     bx, by = xs + flow[..., 0], ys + flow[..., 1]
     side = 2 * r + 2
@@ -308,6 +325,33 @@ def check_dense_lookup_ragged(g, dev) -> None:
             f"{[tuple(v.shape[1:]) for v in vols]}: max |kernel - plain| = {err:.3e}")
         if not err <= 1e-5:
             raise AssertionError(f"K1 disagrees with its plain version on a ragged shape: {err}")
+    # Row strips of a frame (row0 > 0): queries of h rows from image row
+    # row0 against planes of the whole frame's hf rows.
+    for (b, h, w), hf, row0, levels, r, dtype in (((2, 7, 11), 19, 12, 3, 3, torch.bfloat16),
+                                                  ((1, 5, 9), 17, 6, 2, 1, torch.float32),
+                                                  ((3, 3, 13), 9, 3, 4, 4, torch.bfloat16)):
+        vols = random_volumes(g, dev, b * h * w, hf, w, levels, dtype)
+        flow = (torch.rand((b, h, w, 2), generator=g, device=dev) * 2 - 1) * torch.tensor(
+            [1.5 * w, 1.5 * hf], device=dev)
+        edges = window_edges(flow, r, [v.shape[1:] for v in vols], 0, row0)
+        if not all(all(e) for e in edges):
+            raise AssertionError(f"K1 strip draw leaves a plane edge unstraddled: {edges}")
+        err = strip_lookup_error(vols, flow, r, row0)
+        log(f"K1 ragged strip {b}x{h}x{w} rows {row0}..{row0 + h} of {hf} L={levels} r={r} {dtype}: "
+            f"max |kernel - plain| = {err:.3e}")
+        if not err <= 1e-5:
+            raise AssertionError(f"K1 disagrees with its plain version on a strip (row0 {row0}): {err}")
+
+
+def strip_lookup_error(vols, flow, r: int, row0: int) -> float:
+    """max |K1 - plain| at row0, after checking that row0 moves the plain
+    lookup (so a kernel that ignored it could not agree)."""
+    from tpuflow_torch.kernels.denselookup import dense_lookup, dense_lookup_plain
+
+    ref = dense_lookup_plain(vols, flow, r, row0=row0)
+    if torch.equal(ref, dense_lookup_plain(vols, flow, r)):
+        raise AssertionError(f"row0 {row0} does not move the plain lookup on this draw")
+    return (dense_lookup(vols, flow, r, row0=row0) - ref).abs().max().item()
 
 
 def check_dense_lookup(dev) -> dict:
@@ -341,6 +385,20 @@ def check_dense_lookup(dev) -> dict:
     if not side_err <= 1e-5:
         raise AssertionError(f"K1 with level_offset=1 disagrees with its plain version: {side_err}")
     del side_vols
+
+    # One row strip of the tile's grid (spatial sharding over four slots:
+    # the second strip's 34 of 135 rows) against the whole tile's planes,
+    # and a ragged strip (the last one, 33 rows from row 102).
+    strip_errs = {}
+    for rows, row0 in ((34, 34), (33, 102)):
+        svols = random_volumes(g, dev, b * rows * w, h, w, levels, torch.bfloat16)
+        sflow = (torch.rand((b, rows, w, 2), generator=g, device=dev) * 80.0 - 40.0).contiguous()
+        serr = strip_lookup_error(svols, sflow, r, row0)
+        log(f"K1 dense_lookup strip {b}x{rows}x{w} from row {row0} of {h}: max |kernel - plain| = {serr:.3e}")
+        if not serr <= 1e-5:
+            raise AssertionError(f"K1 with row0={row0} disagrees with its plain version: {serr}")
+        strip_errs[f"rows_{row0}_{row0 + rows}"] = serr
+        del svols
 
     # Least bytes for this run's data: the in-plane taps of every query's
     # (2r+2)^2 patch at every level, the flow, and the f32 output.
@@ -399,7 +457,7 @@ def check_dense_lookup(dev) -> dict:
         "replaces": "tpuflow/kernels/denselookup.py:398",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "strip_max_abs_err": strip_errs,
     }
 
 
@@ -408,29 +466,35 @@ def check_flash_attention(dev) -> dict:
     bf16 with q pre-scaled by 128^-0.5 as Attention emits it: the tiled
     window's [6, 16200, 128] (127 query tiles and 127 key tiles of 128, the
     last of 72 rows), the untiled window's [3, 32400, 128] (254 of each,
-    the last of 16) and a MemFlow 1080p frame's [1, 32400, 128]."""
+    the last of 16), a MemFlow 1080p frame's [1, 32400, 128], and one row
+    strip of the untiled window under spatial sharding over four slots
+    (three interior frames x 34 x 240 = [3, 8160, 128] queries against the
+    frame's [3, 32400, 128] keys)."""
     qkv = qkv_draws(dev)
     check_flash_attention_ragged(qkv)
 
     tiled = flash_attention_at(qkv, TILE_QUERIES[0], TILE_QUERIES[1] * TILE_QUERIES[2])
     untiled = flash_attention_at(qkv, UNTILED_QUERIES[0], UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
     memflow = flash_attention_at(qkv, 1, UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
+    strip = flash_attention_at(qkv, UNTILED_QUERIES[0], STRIP_ROWS * UNTILED_QUERIES[2],
+                               UNTILED_QUERIES[1] * UNTILED_QUERIES[2])
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "tpuflow_torch/csrc/flash_attention.cu",
         "replaces": "tpuflow/core/gma.py:35",
-        **tiled, "at_untiled_window": untiled, "at_memflow_frame": memflow,
+        **tiled, "at_untiled_window": untiled, "at_memflow_frame": memflow, "at_strip": strip,
     }
 
 
 def qkv_draws(dev):
-    """qkv(b, s, dtype): seeded q, k, v [b, s, 128], q pre-scaled by 128^-0.5."""
+    """qkv(b, s, dtype, sk=s): seeded q [b, s, 128], pre-scaled by
+    128^-0.5, and k, v [b, sk, 128]."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    def qkv(b, s, dtype):
+    def qkv(b, s, dtype, sk=None):
         d = 128
         q = (torch.randn((b, s, d), generator=g, device=dev) * d**-0.5).to(dtype)
-        return q, *(torch.randn((b, s, d), generator=g, device=dev).to(dtype) for _ in range(2))
+        return q, *(torch.randn((b, sk or s, d), generator=g, device=dev).to(dtype) for _ in range(2))
 
     return qkv
 
@@ -440,24 +504,28 @@ def check_flash_attention_ragged(qkv) -> None:
     1e-4 + 1e-4|ref| (exact exponentials, f32 sums in another order); the
     bf16 kernel at B = 3 on partial query and key tiles of its 128-row CTA, S
     below one tile and tiles that end at a batch row's edge (the 3-D tensor
-    map zero-fills past S instead of reading the next row)."""
+    map zero-fills past S instead of reading the next row); both with query
+    and key counts that differ (the K2_RAGGED_S pairs, first against last)."""
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
-    for b, s in ((1, 130), (3, 37)):
-        q, k, v = qkv(b, s, torch.float32)
+    for b, s, sk in ((1, 130, 130), (3, 37, 37), (3, 37, 130), (2, 130, 37)):
+        q, k, v = qkv(b, s, torch.float32, sk)
         got, ref = flash_attention_fwd(q, k, v), flash_attention_plain(q, k, v)
         excess = ((got - ref).abs() - 1e-4 * (1 + ref.abs())).max().item()
-        log(f"K2 ragged [{b},{s},128] f32: max |kernel - plain| = {(got - ref).abs().max().item():.3e}")
+        log(f"K2 ragged [{b},{s},128] x [{b},{sk},128] f32: max |kernel - plain| = "
+            f"{(got - ref).abs().max().item():.3e}")
         if not excess <= 0:
-            raise AssertionError(f"K2 (f32) disagrees with its plain version at S={s}")
+            raise AssertionError(f"K2 (f32) disagrees with its plain version at Sq={s}, Sk={sk}")
     for s in K2_RAGGED_S:
         flash_attention_draws(qkv, 3, s)
+    for s, sk in zip(K2_RAGGED_S, reversed(K2_RAGGED_S)):
+        flash_attention_draws(qkv, 3, s, sk)
 
 
-def flash_attention_draws(qkv, b: int, s: int):
-    """K2 at [b, s, 128] bf16 against its plain version (chunked over
-    queries) and an f32 reference, two draws.  Returns (max |kernel -
-    plain|, the last draw's q, k, v)."""
+def flash_attention_draws(qkv, b: int, s: int, sk: Optional[int] = None):
+    """K2 at q [b, s, 128] and k, v [b, sk (default s), 128] bf16 against
+    its plain version (chunked over queries) and an f32 reference, two
+    draws.  Returns (max |kernel - plain|, the last draw's q, k, v)."""
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
     # At the model's scale (logits N(0, 1) over s keys) the softmax is nearly
@@ -476,7 +544,7 @@ def flash_attention_draws(qkv, b: int, s: int):
     d = 128
     err = 0.0
     for name, logit_std in (("model scale", 1.0), ("peaked", 4.0)):
-        q, k, v = qkv(b, s, torch.bfloat16)
+        q, k, v = qkv(b, s, torch.bfloat16, sk)
         q = (q.float() * logit_std).to(torch.bfloat16)
         got = flash_attention_fwd(q, k, v).float()
         ref = flash_attention_plain(q, k, v).float()
@@ -489,27 +557,29 @@ def flash_attention_draws(qkv, b: int, s: int):
         ratio_exact = ((got - exact).abs() / (1e-5 + scale)).max().item()
         rel_kernel = ((got - exact).norm() / exact.norm()).item()
         rel_plain = ((ref - exact).norm() / exact.norm()).item()
-        log(f"K2 flash_attention_fwd {tuple(got.shape)} {name}: |out| rms {exact.pow(2).mean().sqrt().item():.3e}, "
+        log(f"K2 flash_attention_fwd {tuple(got.shape)} x {tuple(k.shape)} {name}: |out| rms {exact.pow(2).mean().sqrt().item():.3e}, "
             f"max |kernel - plain| = {diff.max().item():.3e} = {ratio_plain:.3e} scale, "
             f"max |kernel - f32| = {ratio_exact:.3e} scale, by norm vs f32: kernel {rel_kernel:.3e} "
             f"plain {rel_plain:.3e}")
         if not (ratio_exact <= 2**-7 and ratio_plain <= 2**-6 and rel_kernel <= 1.25 * rel_plain + 1e-4):
-            raise AssertionError(f"K2 disagrees with its plain version at [{b},{s},{d}] ({name}): "
+            raise AssertionError(f"K2 disagrees with its plain version at [{b},{s},{d}] x {tuple(k.shape)} ({name}): "
                                  f"{diff.max().item()}, by norm {rel_kernel} vs plain {rel_plain}")
     return err, q, k, v
 
 
-def flash_attention_at(qkv, b: int, s: int) -> dict:
-    """K2 at [b, s, 128] bf16: both draws, then its times and bound."""
+def flash_attention_at(qkv, b: int, s: int, sk: Optional[int] = None) -> dict:
+    """K2 at q [b, s, 128], k, v [b, sk (default s), 128] bf16: both draws,
+    then its times and bound."""
     import torch.nn.functional as F
 
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
 
     d = 128
-    err, q, k, v = flash_attention_draws(qkv, b, s)
+    sk = sk or s
+    err, q, k, v = flash_attention_draws(qkv, b, s, sk)
     torch.cuda.empty_cache()
-    flops = 4.0 * b * s * s * d
-    nbytes = 4 * b * s * d * 2
+    flops = 4.0 * b * s * sk * d
+    nbytes = 2 * b * (s + sk) * d * 2
     bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     ms = time_ms(lambda: flash_attention_fwd(q, k, v), reps=20)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), reps=5)
@@ -517,10 +587,10 @@ def flash_attention_at(qkv, b: int, s: int) -> dict:
         lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=1.0),
         reps=20,
     )
-    log(f"K2 [{b},{s},{d}] ms {ms:.4f}  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound {bound:.4f} "
-        f"({flops / 1e9:.0f} GFLOP)")
+    log(f"K2 [{b},{s},{d}] x [{b},{sk},{d}] ms {ms:.4f}  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  "
+        f"bound {bound:.4f} ({flops / 1e9:.0f} GFLOP)")
     return {
-        "shape": [b, s, d], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "shape": [b, s, d], "key_shape": [b, sk, d], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": lib_ms,
     }
@@ -2917,6 +2987,152 @@ def phase_data_parallel(engine, kernels) -> dict:
     return out
 
 
+SPATIAL_SLOTS = 4                 # 'spatial' slots of the 1080p window, all on the one card
+SPATIAL_SMALL = (480, 640)        # H, W of the two windows of the ('data' 2, 'spatial' 2) run
+SPATIAL_SMALL_IDX = (2, 5)        # their centre frames, of a clip of SPATIAL_SMALL_FRAMES
+SPATIAL_SMALL_FRAMES = 8
+
+
+def spatial_run(engine, kernels, mesh, windows: np.ndarray, want: dict, what: str):
+    """shard_spatial_forward of the engine's model over `mesh` on uint8
+    windows [B, T, H, W, 3] (uploaded as the engine uploads them), counters
+    zeroed just before and read just after, the card's peak memory over the
+    call.  Returns (the middle interior frame's forward flows [B, H, W, 2] as
+    numpy, a dict of numbers)."""
+    from tpuflow_torch.runtime.sharding import shard_spatial_forward
+
+    sharded = shard_spatial_forward(engine.model, mesh, 5, 2)
+    params = engine.model.state_dict()
+    x = torch.from_numpy(windows).to(engine.device).float() / 255.0
+    with torch.inference_mode():
+        sharded(params, x)                                     # warm-up
+        reset_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        (fwd, _), wall = timed_call(lambda: sharded(params, x))
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flows = fwd[:, fwd.shape[1] // 2].float().cpu().numpy()
+    fetched = sum(sum(g.fetched_bytes) for g in sharded.groups)
+    if flows.shape != (windows.shape[0], *windows.shape[2:4], 2) or not np.isfinite(flows).all():
+        raise AssertionError(f"spatial {what}: bad flows, shape {flows.shape}")
+    if fwd.device != engine.device:
+        raise AssertionError(f"spatial {what}: flows on {fwd.device}, not the mesh's first device")
+    if launches != want:
+        raise AssertionError(f"spatial {what}: kernel launches {launches}, expected {want}")
+    rows = sharded.groups[0].rows
+    log(f"spatial {what}: strips of {rows} feature rows, {wall:.3f} s, card peak {peak:.2f} GiB, "
+        f"{fetched / 1e6:.1f} MB fetched between strips, launches {launches}")
+    return flows, {"strip_rows": rows, "wall_s": wall, "card_peak_gib": peak,
+                   "bytes_between_strips": fetched, "launches": launches}
+
+
+def phase_spatial(engine, kernels) -> dict:
+    """shard_spatial_forward (runtime/sharding.py) at the product
+    configuration on the main engine's weights, over meshes that list the
+    one card several times (each slot's strip runs in a host thread of its
+    own; on one card they share it, so these numbers show correctness, and
+    the card's peak is the strips' together; chip_multicard.py puts one
+    strip on each card):
+    - ('data' 1, 'spatial' 4) on one untiled 1920x1080 window (T = 5): the
+      /8 grid's 135 rows in strips of 34, 34, 34 and 33; 'auto' decides on
+      the whole 135x240 grid, so each strip runs FlashCorr2 (K3 96 and K2
+      12 launches per strip, GMA from the strip's queries to the frame's
+      32 400 keys), held to the engine's compute_flow of the same window
+      within FLOW_MEAN_LIMIT / FLOW_MAX_LIMIT;
+    - ('data' 2, 'spatial' 2) on two untiled 640x480 windows: a 60x80 grid,
+      so each strip materializes a dense volume of its own 30 rows' queries
+      and K1 looks it up from row0 = 0 or 30 (24 launches per strip), held
+      to compute_flow_batch of the same two windows."""
+    from tpuflow_torch.runtime.sharding import Mesh
+    from tpuflow_torch.runtime.windows import centered_window_indices
+
+    cfg, dev = engine.config, engine.device
+    t, depth = cfg.sequence_length, cfg.decoder_depth
+    out = {"note": "the strips share one card: correctness, not a speed-up"}
+
+    frames = synthetic_clip(t, MAIN_H, MAIN_W, SEED + 5)
+    engine.compute_flow(frames, t // 2)                        # warm-up
+    ref, ref_wall = timed_call(lambda: engine.compute_flow(frames, t // 2))
+    want = expected_launches(kernels, flash2_patch_level=SPATIAL_SLOTS * 2 * depth * cfg.corr_levels,
+                             flash_attention_fwd=SPATIAL_SLOTS * depth)
+    mesh = Mesh([[dev] * SPATIAL_SLOTS], ("data", "spatial"))
+    flows, out["untiled_1080p"] = spatial_run(engine, kernels, mesh, frames[None], want,
+                                              f"1080p window over {SPATIAL_SLOTS} strips")
+    out["untiled_1080p"]["one_card_compute_flow_wall_s"] = ref_wall
+    out["untiled_1080p"].update(check_flows_agree("spatial 1080p vs compute_flow", flows[0], ref))
+
+    h, w = SPATIAL_SMALL
+    clip = synthetic_clip(SPATIAL_SMALL_FRAMES, h, w, SEED + 11)
+    windows = np.stack([clip[centered_window_indices(len(clip), i, t)] for i in SPATIAL_SMALL_IDX])
+    ref = engine.compute_flow_batch(clip, list(SPATIAL_SMALL_IDX))
+    want = expected_launches(kernels, dense_lookup=4 * 2 * depth, flash_attention_fwd=4 * depth)
+    mesh = Mesh([[dev] * 2] * 2, ("data", "spatial"))
+    flows, out["untiled_640x480"] = spatial_run(engine, kernels, mesh, windows, want,
+                                                f"two {w}x{h} windows, ('data' 2, 'spatial' 2)")
+    out["untiled_640x480"].update(check_flows_agree("spatial 640x480 vs compute_flow_batch", flows, ref))
+    out["strip_probes"] = strip_probes(engine, frames, windows)
+    torch.cuda.empty_cache()
+    return out
+
+
+def strip_probes(engine, frames: np.ndarray, windows: np.ndarray) -> dict:
+    """The strips' kernels on the model's own features, against the
+    unsharded window's rows.  With random weights the flow hardly depends on
+    the lookups (check_lookups_agree), so the flows above would not show a
+    strip that looks up or attends from the wrong rows:
+    - K1 from row0: each ('spatial' 2) strip's DenseCorrPyramid of the
+      640x480 window (its queries' planes of the frame's targets) looked
+      up at probe flows from its row0, bit for bit the unsharded lookup's
+      rows (the same taps, the same arithmetic);
+    - K2 with Sq != Sk: each ('spatial' 4) strip's GMA queries of the 1080p
+      window (GMA q, k and the context as v) against the frame's 32 400
+      keys, held to the unsharded call's rows within K2's own tolerance
+      (2^-7 of softmax(qk^T)|v|; measured bit for bit)."""
+    from tpuflow_torch.core.corr import DenseCorrPyramid
+    from tpuflow_torch.kernels.flashattn import flash_attention_fwd, flash_attention_plain
+    from tpuflow_torch.runtime.sharding import shard_sizes
+
+    model, dev = engine.model, engine.device
+    out = {}
+    with torch.inference_mode():
+        enc = model.encode(torch.from_numpy(windows).to(dev).float() / 255.0)
+        bn, h8, w8, _ = enc.net.shape
+        probe = probe_flow(dev, bn, h8, w8, SEED + 12)
+        full = model._lookup(enc.corr_fwd, probe)
+        start = 0
+        for rows in shard_sizes(h8, 2):
+            sub = DenseCorrPyramid([v.reshape(bn, h8, w8, *v.shape[1:])[:, start : start + rows].reshape(
+                -1, *v.shape[1:]).contiguous() for v in enc.corr_fwd.pyramid], row0=start)
+            got = model._lookup(sub, probe[:, start : start + rows].contiguous())
+            if not torch.equal(got, full[:, start : start + rows]):
+                raise AssertionError(f"strip probe: K1 from row0 {start} is not the unsharded lookup's rows "
+                                     f"(max |diff| {(got - full[:, start : start + rows]).abs().max().item()})")
+            start += rows
+        log(f"strip probe: K1 from each strip's row0 of a {h8}x{w8} grid, bit for bit the unsharded rows")
+        out["k1_row0_bit_equal"] = True
+        del enc, full, sub
+
+        enc = model.encode(torch.from_numpy(frames[None]).to(dev).float() / 255.0)
+        bn, h8, w8, d = enc.q.shape
+        q, k, v = (t.reshape(bn, h8 * w8, d).to(model.dtype).contiguous() for t in (enc.q, enc.k, enc.inp))
+        full = flash_attention_fwd(q, k, v)
+        scale = flash_attention_plain(q.float(), k.float(), v.float().abs())
+        worst, start, bitwise = 0.0, 0, True
+        for rows in shard_sizes(h8, SPATIAL_SLOTS):
+            sl = slice(start * w8, (start + rows) * w8)
+            got = flash_attention_fwd(q[:, sl].contiguous(), k, v)
+            bitwise = bitwise and torch.equal(got, full[:, sl])
+            worst = max(worst, ((got.float() - full[:, sl].float()).abs() / (1e-5 + scale[:, sl])).max().item())
+            start += rows
+        log(f"strip probe: K2 from each of {SPATIAL_SLOTS} strips' queries to the {h8 * w8} keys: max |strip - "
+            f"unsharded| = {worst:.3e} of softmax(qk^T)|v| (limit 2^-7), bit for bit: {bitwise}")
+        if not worst <= 2**-7:
+            raise AssertionError(f"strip probe: K2 from a strip's queries disagrees with the unsharded rows: {worst}")
+        out["k2_strip_vs_unsharded_scale"] = worst
+        out["k2_bit_equal"] = bitwise
+    return out
+
+
 def phase_checkpoint(engine) -> dict:
     """Native checkpoints: save_params of the main engine's weights (bf16 on
     the card, written as the JAX package's float32 flax tree), load_model of
@@ -3285,6 +3501,7 @@ def main() -> int:
     uhd = phase_uhd(engine, kernels)
     single = phase_single_tile(engine)
     dp = phase_data_parallel(engine, kernels)
+    spatial = phase_spatial(engine, kernels)
     ckpt = phase_checkpoint(engine)
     del engine
     torch.cuda.empty_cache()
@@ -3314,13 +3531,15 @@ def main() -> int:
             row["at_untiled_window"]["launches"] = untiled["auto"]["launches"][row["name"]]
         if "at_memflow_frame" in row:
             row["at_memflow_frame"]["launches"] = memflow["launches"][row["name"]]
+        row["spatial_launches"] = {cell: spatial[cell]["launches"][row["name"]]
+                                   for cell in ("untiled_1080p", "untiled_640x480")}
         row["checked_build_launches"] = checked["launches"][row["name"]]
     log(json.dumps({"end_to_end": {k: v for k, v in e2e.items() if k != "launches"},
                     "untiled": untiled, "strided": strided, "formulations": forms,
                     "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
                     "bof": bof, "cnn": cnn, "memflow": memflow, "checked_build": checked,
                     "parity_rel_err": parity, "pipeline": pipeline, "correction": correction,
-                    "data_parallel": dp, "checkpoint": ckpt, "distributed": distributed, "train": train}))
+                    "data_parallel": dp, "spatial": spatial, "checkpoint": ckpt, "distributed": distributed, "train": train}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

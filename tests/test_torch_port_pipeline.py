@@ -416,7 +416,7 @@ def test_compose_matches_jax(layout):
 def test_every_module_imports_with_jax_blocked(clip):
     """A fresh interpreter with jax, jaxlib, flax, optax, msgpack and tpuflow
     blocked in sys.modules imports every module of tpuflow_torch (the
-    sharding, distributed and checkpoint modules by name too) and runs the
+    sharding, strips, distributed and checkpoint modules by name too) and runs the
     CLI's --show-tiles report: the port keeps its own copies and needs
     neither msgpack nor optax."""
     code = (
@@ -426,7 +426,7 @@ def test_every_module_imports_with_jax_blocked(clip):
         "import tpuflow_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tpuflow_torch.__path__, 'tpuflow_torch.')]\n"
         "assert {'tpuflow_torch.runtime.sharding', 'tpuflow_torch.runtime.distributed',\n"
-        "        'tpuflow_torch.runtime.checkpoint'} <= set(mods), mods\n"
+        "        'tpuflow_torch.runtime.checkpoint', 'tpuflow_torch.core.strips'} <= set(mods), mods\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "from tpuflow_torch.tools import cli\n"

@@ -21,7 +21,18 @@ plane, channels in upstream's x-major window order, f32
 - BandCorrPyramid ('band'): levels materialized plane-row-outer
   [B, lh, Nq, lw], patches by K6 (K4's function).
 - CorrPyramid ('gather') and OnTheFlyCorr ('direct'): plain torch, the
-  yardsticks of the tests.
+  yardsticks of the tests.  CorrPyramid also keeps the JAX package's two
+  other gather formulations, `lookup_span` and `lookup_rows`.
+
+Every `lookup` takes `border`: 'zeros' (the models' border: out-of-plane
+taps contribute 0) or 'clamp' (the plane's edge entry is repeated).  A
+clamp lookup of a DenseCorrPyramid takes the exact-patch path (K4 and the
+epilogue) where 'auto' would take the fused K1, as the JAX package's does.
+
+`row0` (every `build`, `make_corr`): the image row of fmap1's first row.  It
+is 0 but in a spatially sharded call (core/strips.py), where fmap1 holds one
+row strip's queries and fmap2 the whole frame's targets; the lookups place
+each query at its own image row.
 
 The TPU package regroups, packs and pads these stores for Mosaic; a GPU
 kernel indexes the plain layouts directly, so those layouts are not ported.
@@ -30,6 +41,7 @@ kernel indexes the plain layouts directly, so those layouts are not ported.
 from __future__ import annotations
 
 import math
+import os
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -41,6 +53,15 @@ from ..kernels.flashcorr2 import flash2_patch_level
 
 MATERIALIZE_THRESHOLD = 168 * 168
 DENSE_LOOKUP_IMPLS = ("auto", "patch", "xla")
+BORDERS = ("zeros", "clamp")
+# The JAX package's kernel names for a dense lookup (TPUFLOW_DENSE_LOOKUP):
+# both are the fused kernel, the port's 'auto'.
+_JAX_KERNEL_NAMES = ("pallas", "interpret")
+
+
+def _check_border(border: str) -> None:
+    if border not in BORDERS:
+        raise ValueError(f"border {border!r}: expected one of {BORDERS}")
 
 
 def pyramid_level_dims(h2: int, w2: int, level: int) -> Tuple[int, int]:
@@ -111,11 +132,12 @@ def _pooled_features(fmap2: torch.Tensor, num_levels: int) -> List[torch.Tensor]
     return pooled
 
 
-def _base_coords(flow: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """flow [B, h, w, 2] -> each pixel's target (x + fx, y + fy), [B, h*w]."""
+def _base_coords(flow: torch.Tensor, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flow [B, h, w, 2] -> each pixel's target (x + fx, y + fy), [B, h*w],
+    the grid's rows at image rows row0 .. row0 + h - 1."""
     b, h, w, _ = flow.shape
     ys, xs = torch.meshgrid(
-        torch.arange(h, device=flow.device, dtype=torch.float32),
+        torch.arange(row0, row0 + h, device=flow.device, dtype=torch.float32),
         torch.arange(w, device=flow.device, dtype=torch.float32),
         indexing="ij",
     )
@@ -154,16 +176,19 @@ def _radius_patch_indices(base_x, base_y, lvl: int, lh: int, lw: int, r: int) ->
     return _PatchIdx(yraw, xraw, rr, cc, wx, wy)
 
 
-def _patch_to_features(patch: torch.Tensor, idx: _PatchIdx, lh: int, lw: int, shape) -> torch.Tensor:
+def _patch_to_features(patch: torch.Tensor, idx: _PatchIdx, lh: int, lw: int, shape,
+                       border: str = "zeros") -> torch.Tensor:
     """(2r+2)^2 exact-value patch [B, hw, side, side] -> (2r+1)^2 bilinear
-    features [B, h, w, (2r+1)^2] f32: out-of-plane taps zeroed, the
-    shared-fraction bilinear in the PATCH's dtype (bf16 arithmetic for bf16
-    storage, as the reference's epilogue), upstream x-major channel order."""
+    features [B, h, w, (2r+1)^2] f32: out-of-plane taps zeroed (border
+    'zeros'; 'clamp' keeps the clamped entries), the shared-fraction
+    bilinear in the PATCH's dtype (bf16 arithmetic for bf16 storage, as the
+    reference's epilogue), upstream x-major channel order."""
     b, h, w, r = shape
     dt = patch.dtype
-    vr = ((idx.yraw >= 0) & (idx.yraw < lh)).to(dt)
-    vc = ((idx.xraw >= 0) & (idx.xraw < lw)).to(dt)
-    patch = patch * vr[:, :, :, None] * vc[:, :, None, :]
+    if border == "zeros":
+        vr = ((idx.yraw >= 0) & (idx.yraw < lh)).to(dt)
+        vc = ((idx.xraw >= 0) & (idx.xraw < lw)).to(dt)
+        patch = patch * vr[:, :, :, None] * vc[:, :, None, :]
     v00 = patch[:, :, :-1, :-1]
     v01 = patch[:, :, :-1, 1:]
     v10 = patch[:, :, 1:, :-1]
@@ -180,17 +205,19 @@ def _patch_to_features(patch: torch.Tensor, idx: _PatchIdx, lh: int, lw: int, sh
     return sampled.reshape(b, h, w, (2 * r + 1) ** 2).float()
 
 
-def _patch_lookup(patches_fn, levels, dims, flow, radius: int, level_offset: int = 0) -> torch.Tensor:
+def _patch_lookup(patches_fn, levels, dims, flow, radius: int, level_offset: int = 0, row0: int = 0,
+                  border: str = "zeros") -> torch.Tensor:
     """Lookup through a patch kernel: the geometry of every stored level
     (plane dims `dims[i]`, sampled at scale 2^(i + level_offset)), then
     `patches_fn(levels, rrs, ccs)`'s (2r+2)^2 patch per level (one call for
     all levels), then the shared epilogue per level."""
+    _check_border(border)
     b, h, w, _ = flow.shape
-    base_x, base_y = _base_coords(flow)
+    base_x, base_y = _base_coords(flow, row0)
     idxs = [_radius_patch_indices(base_x, base_y, lvl0 + level_offset, lh, lw, radius)
             for lvl0, (lh, lw) in enumerate(dims)]
     patches = patches_fn(levels, [idx.rr for idx in idxs], [idx.cc for idx in idxs])
-    return torch.cat([_patch_to_features(patch, idx, lh, lw, (b, h, w, radius))
+    return torch.cat([_patch_to_features(patch, idx, lh, lw, (b, h, w, radius), border)
                       for patch, idx, (lh, lw) in zip(patches, idxs, dims)], dim=-1)
 
 
@@ -198,12 +225,13 @@ class CorrPyramid:
     """Materialized pyramid, levels pooled from the level-0 VOLUME, with the
     patch-gather lookup: the formulation the others are tested against."""
 
-    def __init__(self, pyramid: List[torch.Tensor], target_dims: Tuple[int, int]):
+    def __init__(self, pyramid: List[torch.Tensor], target_dims: Tuple[int, int], row0: int = 0):
         self.pyramid = pyramid          # flat levels [B*h*w, lh*lw]
         self.h2, self.w2 = target_dims  # level-0 target plane
+        self.row0 = row0
 
     @classmethod
-    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
+    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, row0: int = 0):
         b, h, w, c = fmap1.shape
         h2, w2 = fmap2.shape[1], fmap2.shape[2]
         scale = 1.0 / math.sqrt(c)
@@ -216,36 +244,95 @@ class CorrPyramid:
                 levels[lvl].append(x.reshape(h * w, -1))
                 if lvl + 1 < num_levels:
                     x = _pool_planes(x)
-        return cls([torch.cat(parts) for parts in levels], (h2, w2))
+        return cls([torch.cat(parts) for parts in levels], (h2, w2), row0)
 
-    def lookup(self, flow: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    def _levels(self, flow: torch.Tensor, radius: int):
+        """Per level: (flat volume, lh, lw, its _PatchIdx as [N, side] rows)."""
+        base_x, base_y = _base_coords(flow, self.row0)
+        n = base_x.numel()
+        for lvl, volume in enumerate(self.pyramid):
+            lh, lw = pyramid_level_dims(self.h2, self.w2, lvl)
+            idx = _radius_patch_indices(base_x.reshape(1, n), base_y.reshape(1, n), lvl, lh, lw, radius)
+            yield volume, lh, lw, _PatchIdx(*(t[0] for t in idx))
+
+    @staticmethod
+    def _sample(patch: torch.Tensor, idx: _PatchIdx, lh: int, lw: int, border: str) -> torch.Tensor:
+        """[N, side (rows), side (cols)] exact entries -> [N, (2r+1)^2] f32:
+        taps outside the plane zeroed (border 'zeros'), the four-corner f32
+        bilinear (every window position of a query shares one fraction),
+        upstream x-major order."""
+        patch = patch.float()
+        if border == "zeros":
+            vr = ((idx.yraw >= 0) & (idx.yraw < lh)).float()
+            vc = ((idx.xraw >= 0) & (idx.xraw < lw)).float()
+            patch = patch * vr[:, :, None] * vc[:, None, :]
+        wx, wy = idx.wx, idx.wy                 # [N, 1, 1]
+        sampled = (
+            patch[:, :-1, :-1] * (1 - wx) * (1 - wy)
+            + patch[:, :-1, 1:] * wx * (1 - wy)
+            + patch[:, 1:, :-1] * (1 - wx) * wy
+            + patch[:, 1:, 1:] * wx * wy
+        )
+        return sampled.transpose(1, 2).reshape(patch.shape[0], -1)
+
+    def _lookup_with(self, extract, flow: torch.Tensor, radius: int, border: str) -> torch.Tensor:
+        _check_border(border)
+        b, h, w, _ = flow.shape
+        out = [self._sample(extract(volume, lh, lw, idx), idx, lh, lw, border).reshape(b, h, w, -1)
+               for volume, lh, lw, idx in self._levels(flow, radius)]
+        return torch.cat(out, dim=-1)
+
+    def lookup(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros") -> torch.Tensor:
         """One (2r+2)^2 patch gather per query and level, then the four-corner
         f32 bilinear (the window deltas are integers, so every position of a
         query shares one fraction)."""
-        b, h, w, _ = flow.shape
-        r = radius
-        side = 2 * r + 2
-        n = b * h * w
-        base_x, base_y = _base_coords(flow)
-        out = []
-        for lvl, volume in enumerate(self.pyramid):
-            lh, lw = pyramid_level_dims(self.h2, self.w2, lvl)
-            idx = _radius_patch_indices(base_x, base_y, lvl, lh, lw, r)
-            flat = idx.rr.long()[:, :, :, None] * lw + idx.cc.long()[:, :, None, :]
-            patch = torch.gather(volume, 1, flat.reshape(n, side * side))
-            patch = patch.reshape(b, h * w, side, side).float()
-            vr = ((idx.yraw >= 0) & (idx.yraw < lh)).float()
-            vc = ((idx.xraw >= 0) & (idx.xraw < lw)).float()
-            patch = patch * vr[:, :, :, None] * vc[:, :, None, :]
-            wx, wy = idx.wx, idx.wy
-            sampled = (
-                patch[:, :, :-1, :-1] * (1 - wx) * (1 - wy)
-                + patch[:, :, :-1, 1:] * wx * (1 - wy)
-                + patch[:, :, 1:, :-1] * (1 - wx) * wy
-                + patch[:, :, 1:, 1:] * wx * wy
-            )
-            out.append(sampled.transpose(2, 3).reshape(b, h, w, (2 * r + 1) ** 2))
-        return torch.cat(out, dim=-1)
+
+        def extract(volume, lh, lw, idx):
+            n, side = idx.rr.shape
+            flat = idx.rr.long()[:, :, None] * lw + idx.cc.long()[:, None, :]
+            return torch.gather(volume, 1, flat.reshape(n, side * side)).reshape(n, side, side)
+
+        return self._lookup_with(extract, flow, radius, border)
+
+    def lookup_span(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros") -> torch.Tensor:
+        """The JAX package's span formulation (tpuflow/core/corr.py:253): per
+        query and patch row one contiguous span of min(16, lw) entries,
+        starting at the clamped window column, then each patch column picked
+        from the span; a column the span does not hold (patches wider than
+        16 at a plane's edge) reads 0, as the reference's one-hot does.
+        Otherwise equal to `lookup`."""
+
+        def extract(volume, lh, lw, idx):
+            n, side = idx.rr.shape
+            span = min(16, lw)
+            col0 = idx.xraw[:, :1].clamp(0, lw - span)                       # [N, 1]
+            starts = idx.rr.long() * lw + col0.long()                         # [N, side]
+            cols = starts[:, :, None] + torch.arange(span, device=volume.device)
+            spans = torch.gather(volume, 1, cols.reshape(n, side * span)).reshape(n, side, span)
+            rel = idx.cc - col0                                               # [N, side]
+            inside = (rel >= 0) & (rel < span)
+            picked = torch.gather(spans, 2, rel.clamp(0, span - 1).long()[:, None, :].expand(n, side, side))
+            return torch.where(inside[:, None, :], picked, torch.zeros((), dtype=picked.dtype,
+                                                                       device=picked.device))
+
+        return self._lookup_with(extract, flow, radius, border)
+
+    def lookup_rows(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros") -> torch.Tensor:
+        """The JAX package's row-band formulation (tpuflow/core/corr.py:334):
+        per query a band of min(2r+2, lh) whole plane rows at a clamped
+        origin, the patch rows picked from the band and the columns from the
+        rows.  Equal to `lookup`."""
+
+        def extract(volume, lh, lw, idx):
+            n, side = idx.rr.shape
+            band = min(side, lh)
+            origin = idx.yraw[:, :1].clamp(0, lh - band).long()              # [N, 1]
+            offs = origin * lw + torch.arange(band * lw, device=volume.device)
+            rows = torch.gather(volume, 1, offs).reshape(n, band, lw)
+            rows = torch.gather(rows, 1, (idx.rr.long() - origin)[:, :, None].expand(n, side, lw))
+            return torch.gather(rows, 2, idx.cc.long()[:, None, :].expand(n, side, side))
+
+        return self._lookup_with(extract, flow, radius, border)
 
 
 class DenseCorrPyramid:
@@ -253,12 +340,13 @@ class DenseCorrPyramid:
     `level_offset` = k marks a pyramid that holds only levels k.. of a larger
     one (FlashCorr's sidecar): stored level i is sampled at scale 2^(i+k)."""
 
-    def __init__(self, pyramid: List[torch.Tensor], level_offset: int = 0):
+    def __init__(self, pyramid: List[torch.Tensor], level_offset: int = 0, row0: int = 0):
         self.pyramid = pyramid
         self.level_offset = level_offset
+        self.row0 = row0
 
     @classmethod
-    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
+    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, row0: int = 0):
         """Each level is one matmul of the source features against the target
         features 2^l-average-pooled in f32 (the reference's F.avg_pool2d
         chain up to summation order), scaled by 1/sqrt(C)."""
@@ -279,9 +367,10 @@ class DenseCorrPyramid:
             # power of two at C=256, so the bf16 product rounds once.
             vol = torch.matmul(q, flat.transpose(1, 2)).mul_(scale)
             pyramid.append(vol.reshape(b * h * w, lh, lw))
-        return cls(pyramid)
+        return cls(pyramid, row0=row0)
 
-    def lookup(self, flow: torch.Tensor, radius: int = 4, impl: Optional[str] = None) -> torch.Tensor:
+    def lookup(self, flow: torch.Tensor, radius: int = 4, impl: Optional[str] = None,
+               border: str = "zeros") -> torch.Tensor:
         """flow [B, h, w, 2] f32 -> [B, h, w, L*(2r+1)^2] f32.  `impl`:
         'auto' = the fused kernel K1 (f32 bilinear); 'patch' = the
         exact-patch kernel K4 and the shared epilogue (bilinear in the
@@ -291,16 +380,24 @@ class DenseCorrPyramid:
         differentiable in the volumes and the flow.  Only the caller picks
         'xla' (the train step does); 'auto' never falls back to it.  K1's
         plain version is `dense_lookup_plain`, called directly by tests and
-        yardsticks, never from here."""
-        mode = impl or "auto"
+        yardsticks, never from here.
+
+        The TPUFLOW_DENSE_LOOKUP environment variable, where set, beats
+        `impl` (the JAX package's sweep override, tpuflow/core/corr.py:597;
+        its kernel names 'pallas' and 'interpret' mean 'auto' here).  A
+        border='clamp' lookup under 'auto' takes 'patch': the fused kernel
+        zeroes its border, as the JAX package's does."""
+        env = os.environ.get("TPUFLOW_DENSE_LOOKUP")
+        mode = ("auto" if env in _JAX_KERNEL_NAMES else env) or impl or "auto"
         if mode not in DENSE_LOOKUP_IMPLS:
             raise ValueError(f"dense_lookup {mode!r}: expected one of {DENSE_LOOKUP_IMPLS}")
+        _check_border(border)
         flow = flow.contiguous()
-        if mode == "auto":
-            return dense_lookup(self.pyramid, flow, radius, self.level_offset)
+        if mode == "auto" and border == "zeros":
+            return dense_lookup(self.pyramid, flow, radius, self.level_offset, row0=self.row0)
         dims = [(v.shape[1], v.shape[2]) for v in self.pyramid]
-        patches = dense_patch_levels if mode == "patch" else _gather_patches
-        return _patch_lookup(patches, self.pyramid, dims, flow, radius, self.level_offset)
+        patches = _gather_patches if mode == "xla" else dense_patch_levels
+        return _patch_lookup(patches, self.pyramid, dims, flow, radius, self.level_offset, self.row0, border)
 
 
 def _gather_patches(volumes, rrs, ccs) -> List[torch.Tensor]:
@@ -322,18 +419,22 @@ class OnTheFlyCorr:
     corners' feature rows per window position and contracts them with
     fmap1."""
 
-    def __init__(self, fmap1: torch.Tensor, pyramid: List[torch.Tensor]):
+    def __init__(self, fmap1: torch.Tensor, pyramid: List[torch.Tensor], row0: int = 0):
         self.fmap1 = fmap1      # [B, h, w, C]
         self.pyramid = pyramid  # pooled fmap2 per level [B, lh, lw, C]
+        self.row0 = row0
 
     @classmethod
-    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
-        return cls(fmap1, _pooled_features(fmap2, num_levels))
+    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, row0: int = 0):
+        return cls(fmap1, _pooled_features(fmap2, num_levels), row0)
 
-    def lookup(self, flow: torch.Tensor, radius: int = 4, chunk_budget: int = 4 * 10**8) -> torch.Tensor:
+    def lookup(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros",
+               chunk_budget: int = 4 * 10**8) -> torch.Tensor:
         """Queries go in chunks so that one corner's gather [B, chunk, P, C]
         stays within `chunk_budget` bytes; chunking only reorders independent
-        per-query work."""
+        per-query work.  border='clamp': an out-of-plane corner reads the
+        plane's edge."""
+        _check_border(border)
         b, h, w, _ = flow.shape
         r = radius
         c = self.fmap1.shape[-1]
@@ -343,7 +444,7 @@ class OnTheFlyCorr:
         dx, dy = dxg.reshape(-1), dyg.reshape(-1)
         p = dx.shape[0]
         hw = h * w
-        base_x, base_y = _base_coords(flow)
+        base_x, base_y = _base_coords(flow, self.row0)
         f1 = self.fmap1.reshape(b, hw, c)
         scale = 1.0 / math.sqrt(c)
         bidx = torch.arange(b, device=dev)[:, None, None]
@@ -363,8 +464,9 @@ class OnTheFlyCorr:
                 (y0u + 1, x0u, (1 - wx) * wy),
                 (y0u + 1, x0u + 1, wx * wy),
             ):
-                # Zero padding: an out-of-plane corner contributes nothing.
-                wgt = wgt * ((yu >= 0) & (yu < lh) & (xu >= 0) & (xu < lw)).float()
+                if border == "zeros":
+                    # Zero padding: an out-of-plane corner contributes nothing.
+                    wgt = wgt * ((yu >= 0) & (yu < lh) & (xu >= 0) & (xu < lw)).float()
                 v = f2l[bidx, yu.clamp(0, lh - 1), xu.clamp(0, lw - 1)]   # [B, Q, P, C]
                 corr = corr + wgt * torch.einsum("bqc,bqpc->bqp", f1_block.float(), v.float())
             return corr * scale
@@ -379,7 +481,8 @@ class OnTheFlyCorr:
         return out.reshape(b, h, w, -1)
 
 
-def _recomputed_lookup(kernel, fmap1, pooled, flow, radius: int) -> torch.Tensor:
+def _recomputed_lookup(kernel, fmap1, pooled, flow, radius: int, row0: int = 0,
+                       border: str = "zeros") -> torch.Tensor:
     """Lookup through a recomputed-correlation kernel (K3 or K5) against the
     pooled target features of each level; the kernel learns the query
     grid's width, w, for its tiles."""
@@ -390,7 +493,7 @@ def _recomputed_lookup(kernel, fmap1, pooled, flow, radius: int) -> torch.Tensor
     def patches(levels, rrs, ccs):
         return [kernel(f1, f2l, rr, cc, grid_w=w) for f2l, rr, cc in zip(levels, rrs, ccs)]
 
-    return _patch_lookup(patches, pooled, dims, flow, radius)
+    return _patch_lookup(patches, pooled, dims, flow, radius, row0=row0, border=border)
 
 
 class FlashCorr:
@@ -402,14 +505,15 @@ class FlashCorr:
     features' dtype, equal to volume pooling up to float reassociation."""
 
     def __init__(self, fmap1: torch.Tensor, flash_pyr: List[torch.Tensor],
-                 dense: Optional[DenseCorrPyramid] = None):
+                 dense: Optional[DenseCorrPyramid] = None, row0: int = 0):
         self.fmap1 = fmap1
         self.flash_pyr = flash_pyr
         self.dense = dense
+        self.row0 = row0
 
     @classmethod
     def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4,
-              flash_levels: Optional[int] = None, dense_budget: int = 2 * 10**9):
+              flash_levels: Optional[int] = None, dense_budget: int = 2 * 10**9, row0: int = 0):
         """flash_levels=None: level 0 goes through the kernel (three quarters
         of the volume); deeper levels stay dense while their volumes fit
         `dense_budget` bytes, else every level goes through the kernel."""
@@ -424,14 +528,15 @@ class FlashCorr:
         dense = None
         if flash_levels < num_levels:
             sub = DenseCorrPyramid.build(fmap1, pooled[flash_levels], num_levels - flash_levels)
-            dense = DenseCorrPyramid(sub.pyramid, level_offset=flash_levels)
-        return cls(fmap1, [p.contiguous() for p in pooled[:flash_levels]], dense)
+            dense = DenseCorrPyramid(sub.pyramid, level_offset=flash_levels, row0=row0)
+        return cls(fmap1, [p.contiguous() for p in pooled[:flash_levels]], dense, row0)
 
-    def lookup(self, flow: torch.Tensor, radius: int = 4) -> torch.Tensor:
-        flash_out = _recomputed_lookup(flash_patch_level, self.fmap1, self.flash_pyr, flow, radius)
+    def lookup(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros") -> torch.Tensor:
+        flash_out = _recomputed_lookup(flash_patch_level, self.fmap1, self.flash_pyr, flow, radius,
+                                       self.row0, border)
         if self.dense is None:
             return flash_out
-        return torch.cat([flash_out, self.dense.lookup(flow, radius)], dim=-1)
+        return torch.cat([flash_out, self.dense.lookup(flow, radius, border=border)], dim=-1)
 
 
 class FlashCorr2:
@@ -439,16 +544,18 @@ class FlashCorr2:
     features [B, lh, lw, C]: no volume, no build beyond the pooling, no
     sidecar.  The formulation for grids too large to materialize."""
 
-    def __init__(self, fmap1: torch.Tensor, pooled_pyr: List[torch.Tensor]):
+    def __init__(self, fmap1: torch.Tensor, pooled_pyr: List[torch.Tensor], row0: int = 0):
         self.fmap1 = fmap1            # [B, h, w, C]
         self.pooled_pyr = pooled_pyr  # per level [B, lh, lw, C]
+        self.row0 = row0
 
     @classmethod
-    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
-        return cls(fmap1, [p.contiguous() for p in _pooled_features(fmap2, num_levels)])
+    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, row0: int = 0):
+        return cls(fmap1, [p.contiguous() for p in _pooled_features(fmap2, num_levels)], row0)
 
-    def lookup(self, flow: torch.Tensor, radius: int = 4) -> torch.Tensor:
-        return _recomputed_lookup(flash2_patch_level, self.fmap1, self.pooled_pyr, flow, radius)
+    def lookup(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros") -> torch.Tensor:
+        return _recomputed_lookup(flash2_patch_level, self.fmap1, self.pooled_pyr, flow, radius,
+                                  self.row0, border)
 
 
 class BandCorrPyramid:
@@ -458,11 +565,12 @@ class BandCorrPyramid:
     from pooled features as DenseCorrPyramid.build does), so deep levels
     differ from the dense pyramid's by float reassociation."""
 
-    def __init__(self, pyramid: List[torch.Tensor]):
+    def __init__(self, pyramid: List[torch.Tensor], row0: int = 0):
         self.pyramid = pyramid
+        self.row0 = row0
 
     @classmethod
-    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
+    def build(cls, fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4, row0: int = 0):
         b, h, w, c = fmap1.shape
         h2, w2 = fmap2.shape[1], fmap2.shape[2]
         scale = 1.0 / math.sqrt(c)
@@ -484,11 +592,11 @@ class BandCorrPyramid:
                     pyramid[lvl][bi, :, s : s + rows] = x.transpose(0, 1)
                     if lvl + 1 < num_levels:
                         x = _pool_planes(x)
-        return cls(pyramid)
+        return cls(pyramid, row0)
 
-    def lookup(self, flow: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    def lookup(self, flow: torch.Tensor, radius: int = 4, border: str = "zeros") -> torch.Tensor:
         dims = [(v.shape[1], v.shape[3]) for v in self.pyramid]
-        return _patch_lookup(band_patch_levels, self.pyramid, dims, flow, radius)
+        return _patch_lookup(band_patch_levels, self.pyramid, dims, flow, radius, row0=self.row0, border=border)
 
 
 def make_corr(
@@ -497,25 +605,27 @@ def make_corr(
     num_levels: int = 4,
     impl: str = "auto",
     materialize_threshold: int = MATERIALIZE_THRESHOLD,
+    row0: int = 0,
 ):
     """Pick the correlation formulation.  'auto' materializes the volume
     (DenseCorrPyramid, lookup cost independent of the flow) while the feature
     grid has at most `materialize_threshold` cells, and recomputes patches
-    with FlashCorr2 above it, on every device.  The other values force one
-    formulation: 'materialized' | 'dense', 'gather', 'direct', 'flash',
-    'flash2', 'band'."""
+    with FlashCorr2 above it, on every device.  The grid is the target's,
+    fmap2's: the whole frame's, also where fmap1 holds one row strip of it
+    (`row0`, module docstring).  The other values force one formulation:
+    'materialized' | 'dense', 'gather', 'direct', 'flash', 'flash2', 'band'."""
     if impl in ("materialized", "dense"):
-        return DenseCorrPyramid.build(fmap1, fmap2, num_levels)
+        return DenseCorrPyramid.build(fmap1, fmap2, num_levels, row0)
     if impl == "gather":
-        return CorrPyramid.build(fmap1, fmap2, num_levels)
+        return CorrPyramid.build(fmap1, fmap2, num_levels, row0)
     if impl == "direct":
-        return OnTheFlyCorr.build(fmap1, fmap2, num_levels)
+        return OnTheFlyCorr.build(fmap1, fmap2, num_levels, row0)
     if impl == "flash":
-        return FlashCorr.build(fmap1, fmap2, num_levels)
+        return FlashCorr.build(fmap1, fmap2, num_levels, row0=row0)
     if impl == "flash2":
-        return FlashCorr2.build(fmap1, fmap2, num_levels)
+        return FlashCorr2.build(fmap1, fmap2, num_levels, row0)
     if impl == "band":
-        return BandCorrPyramid.build(fmap1, fmap2, num_levels)
-    if fmap1.shape[1] * fmap1.shape[2] > materialize_threshold:
-        return FlashCorr2.build(fmap1, fmap2, num_levels)
-    return DenseCorrPyramid.build(fmap1, fmap2, num_levels)
+        return BandCorrPyramid.build(fmap1, fmap2, num_levels, row0)
+    if fmap2.shape[1] * fmap2.shape[2] > materialize_threshold:
+        return FlashCorr2.build(fmap1, fmap2, num_levels, row0)
+    return DenseCorrPyramid.build(fmap1, fmap2, num_levels, row0)

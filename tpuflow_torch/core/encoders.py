@@ -28,6 +28,13 @@ for the cnn encoder fnet.conv1, fnet.norm1, fnet.layer{i}.{j}.{conv1,norm1,
 conv2,norm2,downsample,norm3}, fnet.conv2 (the JAX package's flax names
 with `layer{i}_{j}` written `layer{i}.{j}`).  The cnn encoder has no
 upstream checkpoint.
+
+Inside a spatially sharded call (core/strips.py) each encoder runs on its
+strip's rows: the patch embeddings' strided convs read only their own rows
+(strips are whole multiples of 8 pixel rows), the windowed attention
+fetches the rows of every 7-row window that meets the strip, the global
+attention's keys come from the whole map, the positional and cnn convs
+fetch their halos, and the GroupNorms sum their statistics over the strips.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from . import strips
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +92,9 @@ class TwinsMlp(nn.Module):
 
 class LocallyGroupedAttn(nn.Module):
     """Windowed multi-head attention with a fused qkv projection; the grid
-    is zero-padded at the bottom/right to a multiple of ws."""
+    is zero-padded at the bottom/right to a multiple of ws.  In a strip, the
+    rows of every window that meets the strip are fetched (the frame's
+    bottom padding comes back as zeros) and the strip's own rows kept."""
 
     def __init__(self, dim: int, num_heads: int, ws: int = 7):
         super().__init__()
@@ -95,9 +106,23 @@ class LocallyGroupedAttn(nn.Module):
     def forward(self, x, size):
         b, n, c = x.shape
         h, w = size
+        x = x.reshape(b, h, w, c)
+        strip = strips.current()
+        if strip is None:
+            return self.proj(self._attend(x).reshape(b, n, c))
+        ws = self.ws
+        start, stop = strip.span(h)
+        first = start // ws * ws
+        rows = strip.fetch(x, 1, first, -(-stop // ws) * ws)
+        return self.proj(self._attend(rows)[:, start - first : stop - first].reshape(b, n, c))
+
+    def _attend(self, x):
+        """The windowed attention of a [b, h, w, c] grid, before the
+        output projection."""
+        b, h, w, c = x.shape
         ws, nh = self.ws, self.num_heads
         pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
-        x = F.pad(x.reshape(b, h, w, c), (0, 0, 0, pad_r, 0, pad_b))
+        x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
         hp, wp = h + pad_b, w + pad_r
         gh, gw = hp // ws, wp // ws
         x = x.reshape(b, gh, ws, gw, ws, c).transpose(2, 3)
@@ -105,13 +130,13 @@ class LocallyGroupedAttn(nn.Module):
         q, k, v = qkv[0], qkv[1], qkv[2]
         attn = attention_probs(q, k, self.scale)
         out = (attn @ v).transpose(2, 3).reshape(b, gh, gw, ws, ws, c)
-        out = out.transpose(2, 3).reshape(b, hp, wp, c)[:, :h, :w]
-        return self.proj(out.reshape(b, n, c))
+        return out.transpose(2, 3).reshape(b, hp, wp, c)[:, :h, :w]
 
 
 class GlobalSubSampleAttn(nn.Module):
     """Full-resolution queries against keys/values from an sr-strided conv
-    sub-sample (SAME padding, see module docstring)."""
+    sub-sample (SAME padding, see module docstring).  In a strip the keys
+    come from the whole map, gathered from every strip."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int):
         super().__init__()
@@ -129,8 +154,13 @@ class GlobalSubSampleAttn(nn.Module):
         nh = self.num_heads
         q = self.q(x).reshape(b, n, nh, c // nh).permute(0, 2, 1, 3)
         kv_in = x
+        strip = strips.current()
+        if strip is not None:
+            h, w = size
+            kv_in = strip.gather(x.reshape(b, h, w, c), 1).reshape(b, -1, c)
+            size = (kv_in.shape[1] // w, w)
         if self.sr_ratio > 1:
-            xs = same_pad_strided(tokens_to_nchw(x, *size), self.sr_ratio, self.sr_ratio)
+            xs = same_pad_strided(tokens_to_nchw(kv_in, *size), self.sr_ratio, self.sr_ratio)
             kv_in = self.norm(nchw_to_tokens(self.sr(xs)))
         kv = self.kv(kv_in).reshape(b, -1, 2, nh, c // nh).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
@@ -171,7 +201,8 @@ class TwinsPatchEmbed(nn.Module):
 
 
 class PosConv(nn.Module):
-    """Conditional positional encoding: residual depthwise 3x3."""
+    """Conditional positional encoding: residual depthwise 3x3 (a 1-row
+    halo in a strip)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -179,7 +210,7 @@ class PosConv(nn.Module):
 
     def forward(self, x, size):
         feat = tokens_to_nchw(x, *size)
-        return nchw_to_tokens(self.proj(feat) + feat)
+        return nchw_to_tokens(strips.conv_same(self.proj[0], feat) + feat)
 
 
 class TwinsSVT(nn.Module):
@@ -238,12 +269,15 @@ class TwinsEncoder(nn.Module):
 
 class SameConv2d(nn.Conv2d):
     """A k x k stride-s conv (k odd) padded as flax's default 'SAME' pads:
-    k // 2 on each side at stride 1, same_pad_strided above it."""
+    k // 2 on each side at stride 1, same_pad_strided above it; in a strip,
+    strips.conv_same (its halo and the frame's own padding)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1):
         super().__init__(in_ch, out_ch, k, stride, padding=k // 2 if stride == 1 else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if strips.current() is not None:
+            return strips.conv_same(self, x)
         if self.stride[0] > 1:
             x = same_pad_strided(x, self.kernel_size[0], self.stride[0])
         return super().forward(x)
@@ -255,7 +289,9 @@ class GroupNorm(nn.GroupNorm):
     The statistics are one reduction over each group's channels and pixels
     in whatever memory layout the convolution left (channels-last here):
     F.group_norm's per-row moments kernel took 87 % of the cnn encoders'
-    device time on that layout (an H100, 1080p tiles)."""
+    device time on that layout (an H100, 1080p tiles).  In a strip the mean
+    and then the mean squared deviation are summed over the strips, the two
+    passes torch.var_mean makes over one frame."""
 
     def __init__(self, num_groups: int, channels: int):
         super().__init__(num_groups, channels, eps=1e-6)
@@ -263,7 +299,13 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         xf = x.float().reshape(n, self.num_groups, c // self.num_groups, h, w)
-        var, mean = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, correction=0)
+        strip = strips.current()
+        if strip is None:
+            var, mean = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, correction=0)
+        else:
+            count = c // self.num_groups * strip.global_rows(h) * w
+            mean = strip.all_sum(xf.sum(dim=(2, 3, 4), keepdim=True)) / count
+            var = strip.all_sum((xf - mean).square().sum(dim=(2, 3, 4), keepdim=True)) / count
         y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(n, c, h, w)
         return (y * self.weight.float()[:, None, None] + self.bias.float()[:, None, None]).to(x.dtype)
 

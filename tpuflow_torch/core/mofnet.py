@@ -26,6 +26,14 @@ per-pair correlations (`refine_pairs`): the lookup then runs per interior
 frame on its own pair and re-interleaves in (window, interior) order.
 BOFNet is MOFNet under another name, run at the config's T (3: one
 interior frame).
+
+Under runtime/sharding.py `shard_spatial_forward`, `forward` runs on one
+row strip of the frames (core/strips.py): the encoders' and the update
+block's cross-row operations exchange rows with the other strips, each
+strip correlates its own queries against the whole frame's target features
+(decided on the whole grid, looked up from the strip's first row), GMA
+attends from its queries to the whole frame's keys, and the flows come out
+in the strip's rows.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Any, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from . import strips
 from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
 from .gma import GMA_IMPLS, Attention, materialize_attention
@@ -63,8 +72,9 @@ ENCODER_CHUNK_PIXELS = 2**21
 
 def encode_chunked(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """`net` over frames [M, H, W, 3], ENCODER_CHUNK_PIXELS at a time (both
-    encoders are per frame, so chunking changes no value)."""
-    per = max(1, ENCODER_CHUNK_PIXELS // (x.shape[1] * x.shape[2]))
+    encoders are per frame, so chunking changes no value), counted on the
+    whole frame: every strip of a sharded call chunks alike."""
+    per = max(1, ENCODER_CHUNK_PIXELS // (strips.global_rows(x.shape[1]) * x.shape[2]))
     if x.shape[0] <= per:
         return net(x)
     return torch.cat([net(x[i : i + per]) for i in range(0, x.shape[0], per)])
@@ -110,7 +120,7 @@ class MOFNet(nn.Module):
         self.fnet = make_encoder(encoder, feature_dim, "instance")
         self.cnet = make_encoder(encoder, hidden_dim + context_dim, "batch")
         self.att = Attention(dim=context_dim, dim_head=context_dim)
-        self.update_block = SKUpdateBlockMOF(corr_levels, corr_radius, hidden_dim)
+        self.update_block = SKUpdateBlockMOF(corr_levels, corr_radius, hidden_dim, context_dim=context_dim)
         self.gma_impl = gma_impl
         self.attn_mem_budget = attn_mem_budget
 
@@ -144,14 +154,18 @@ class MOFNet(nn.Module):
 
     def encode_from_features(self, feats: torch.Tensor, ctx: torch.Tensor) -> MOFEncoded:
         """Window assembly from per-frame features: feats [B, T, h, w, Cf],
-        ctx [B, T, h, w, 256] (interiors 1..T-2 of ctx are read)."""
+        ctx [B, T, h, w, 256] (interiors 1..T-2 of ctx are read).  In a strip
+        the targets are the whole frame's, gathered from every strip."""
         b, t, h8, w8 = feats.shape[:4]
         n = t - 2
         net, inp, q, k = self.prepare_context(ctx[:, 1 : t - 1].reshape(b * n, h8, w8, -1))
         center = feats[:, 1 : t - 1].reshape(b * n, h8, w8, -1).to(self.corr_dtype)
-        fwd_tgt = feats[:, 2:t].reshape(b * n, h8, w8, -1).to(self.corr_dtype)
-        bwd_tgt = feats[:, 0 : t - 2].reshape(b * n, h8, w8, -1).to(self.corr_dtype)
-        kw = dict(impl=self.corr_impl, materialize_threshold=self.materialize_threshold)
+        strip = strips.current()
+        targets = feats if strip is None else strip.gather(feats, 2)
+        fwd_tgt = targets[:, 2:t].reshape(b * n, -1, w8, targets.shape[-1]).to(self.corr_dtype)
+        bwd_tgt = targets[:, 0 : t - 2].reshape(b * n, -1, w8, targets.shape[-1]).to(self.corr_dtype)
+        kw = dict(impl=self.corr_impl, materialize_threshold=self.materialize_threshold,
+                  row0=strips.first_row(h8))
         corr_fwd = make_corr(center, fwd_tgt, self.corr_levels, **kw)
         corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, **kw)
         return MOFEncoded(inp, net, q, k, corr_fwd, corr_bwd, b)
@@ -207,21 +221,25 @@ class MOFNet(nn.Module):
         return corr.lookup(flow, self.corr_radius)
 
     def refine(self, enc: MOFEncoded) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Iterative refinement + convex upsample -> ([B, N, H, W, 2],) x 2."""
+        """Iterative refinement + convex upsample -> ([B, N, H, W, 2],) x 2.
+        In a strip, GMA's keys are the whole frame's (gathered once here),
+        and the materialization budget is judged on the strip's queries."""
         bn, h8, w8, _ = enc.net.shape
         b = enc.batch
         n = bn // b
         flow = torch.zeros((bn, h8, w8, 4), dtype=torch.float32, device=enc.net.device)
         net = enc.net
         mhs = torch.zeros((b, n, h8, w8, 48), dtype=self.dtype, device=enc.net.device)
+        strip = strips.current()
+        k = enc.k if strip is None else strip.gather(enc.k, 1)
         attn = None
-        if self.gma_impl == "xla" and bn * (h8 * w8) ** 2 * 2 <= self.attn_mem_budget:
-            attn = materialize_attention(enc.q, enc.k, self.dtype)
+        if self.gma_impl == "xla" and bn * h8 * w8 * k.shape[1] * w8 * 2 <= self.attn_mem_budget:
+            attn = materialize_attention(enc.q, k, self.dtype)
         for _ in range(self.decoder_depth):
             cf = self._lookup(enc.corr_fwd, flow[..., 0:2]).to(self.dtype)
             cb = self._lookup(enc.corr_bwd, flow[..., 2:4]).to(self.dtype)
             corr = torch.cat([cf, cb], dim=-1)
-            net, mhs, delta = self.update_block.step(net, mhs, enc.inp, corr, flow, enc.q, enc.k, b, attn)
+            net, mhs, delta = self.update_block.step(net, mhs, enc.inp, corr, flow, enc.q, k, b, attn)
             flow = flow + delta.float()
         # Only the last step's mask is read, so the mask head runs once.
         mask = self.update_block.upsample_mask(net).float()

@@ -3,6 +3,11 @@ VideoFlow MOF's SKMotionEncoder6_Deep_nopool_res and
 SKUpdateBlock6_Deep_nopoolres_AllDecoder2, and MemFlow's two-frame
 SKMotionEncoderMem and SKUpdateBlockMem, under their upstream state-dict
 names.  Public tensors are NHWC; the convs run on NCHW views of them.
+
+In a spatially sharded call (core/strips.py) the depthwise convs of
+PCBlock4 (15x15: a 7-row halo; 7x7 in the 'gru': 3 rows) and the mask
+head's 3x3 fetch their halos; every other conv is 1x1, and the motion
+hidden state shifts across interior frames, not rows.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from . import strips
 from .encoders import gelu
 from .gma import Aggregate
 
@@ -42,7 +48,7 @@ class PCBlock4(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = gelu(x + self.ffn1[2](gelu(self.ffn1[0](x))))
         for conv in self.conv_list:
-            x = gelu(x + conv(x))
+            x = gelu(x + strips.conv_same(conv, x))
         x = gelu(x + self.pw(x))
         return self.ffn2[2](gelu(self.ffn2[0](x)))
 
@@ -103,17 +109,19 @@ class SKUpdateBlockMOF(nn.Module):
         hidden_dim: int = 128,
         k_conv: Sequence[int] = (1, 15),
         pc_updater_conv: Sequence[int] = (1, 7),
+        context_dim: int = 128,
     ):
         super().__init__()
         self.encoder = SKMotionEncoderMOF(corr_levels, corr_radius, k_conv)
-        self.gru = PCBlock4(128 + hidden_dim + hidden_dim + 128, hidden_dim, pc_updater_conv)
+        self.gru = PCBlock4(128 + hidden_dim + context_dim + 128, hidden_dim, pc_updater_conv)
         self.flow_head = PCBlock4(hidden_dim, 4, k_conv)
         self.mask = nn.Sequential(
             nn.Conv2d(hidden_dim, 256, 3, padding=1),
             nn.ReLU(inplace=True),
             nn.Conv2d(256, 64 * 9 * 2, 1),
         )
-        self.aggregator = Aggregate(dim=128)
+        # GMA's q/k and v have the context's width (Attention in MOFNet).
+        self.aggregator = Aggregate(dim=128, dim_head=context_dim)
 
     def step(self, net, mhs, inp, corr, flow, q, k, bs: int, attn=None):
         """The refinement step without the mask head (NHWC in and out):
@@ -136,7 +144,8 @@ class SKUpdateBlockMOF(nn.Module):
 
     def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
         """[B*N, h, w, 128] -> [B*N, h, w, 2*576] convex-upsample weights."""
-        return nchw_to_nhwc(0.25 * self.mask(nhwc_to_nchw(net)))
+        x = self.mask[1](strips.conv_same(self.mask[0], nhwc_to_nchw(net)))
+        return nchw_to_nhwc(0.25 * self.mask[2](x))
 
     def forward(self, net, mhs, inp, corr, flow, q, k, bs: int):
         """One full step, as the reference's update block returns it:

@@ -6,7 +6,10 @@
 // per level and direction on every refinement iteration.
 //
 // What it computes, for every query n = (b, y, x) and stored level l with
-// flat volume V_l [N, lh, lw] (bf16 or f32), flow (fx, fy) and radius r:
+// flat volume V_l [N, lh, lw] (bf16 or f32), flow (fx, fy) and radius r,
+// where y is the query's image row: row0 + its row in the query grid (row0
+// > 0 for the queries of one row strip of a frame, runtime/sharding.py
+// shard_spatial_forward, whose volumes hold the whole frame's targets):
 //   cx = (x + fx) / 2^(l+o), x0 = floor(cx), wx = cx - x0   (same for y)
 //   p[j][i] = V_l[n, y0 - r + i, x0 - r + j], 0 outside [0,lh) x [0,lw)
 //   t       = p[j][i] + wx * (p[j+1][i] - p[j][i])         (f32)
@@ -73,7 +76,7 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float w) {
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
     const __grid_constant__ Levels levels, const float* __restrict__ flow,
-    float* __restrict__ out, int n_query, int h, int w, int radius, int n_levels,
+    float* __restrict__ out, int n_query, int h, int w, int row0, int radius, int n_levels,
     int level_offset, long long flow_extent, long long out_extent) {
   extern __shared__ float staged[];  // per warp: n_levels patches, [column][row]
   const int warp = threadIdx.x >> 5;
@@ -88,8 +91,9 @@ __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
   float* taps = staged + warp * n_levels * patch;
 
   const int pix = q % (h * w);
-  const int y = pix / w;
-  const int x = pix - y * w;
+  const int gy = pix / w;
+  const int x = pix - gy * w;
+  const int y = gy + row0;
   TF_GUARD_SPAN(2 * (int64_t)q, 2, flow_extent);
   const float bx = __fadd_rn((float)x, flow[2 * (int64_t)q]);
   const float by = __fadd_rn((float)y, flow[2 * (int64_t)q + 1]);
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(32 * kWarps) dense_lookup_kernel(
 
 template <typename T>
 int launch(const Levels& levels, const float* flow, float* out, int n_query, int h, int w,
-           int radius, int n_levels, int level_offset, long long flow_extent,
+           int row0, int radius, int n_levels, int level_offset, long long flow_extent,
            long long out_extent, cudaStream_t s) {
   const int side = 2 * radius + 2;
   const int smem = kWarps * n_levels * side * side * (int)sizeof(float);
@@ -166,7 +170,8 @@ int launch(const Levels& levels, const float* flow, float* out, int n_query, int
   }
   const unsigned blocks = (unsigned)((n_query + kWarps - 1) / kWarps);
   dense_lookup_kernel<T><<<blocks, 32 * kWarps, smem, s>>>(
-      levels, flow, out, n_query, h, w, radius, n_levels, level_offset, flow_extent, out_extent);
+      levels, flow, out, n_query, h, w, row0, radius, n_levels, level_offset, flow_extent,
+      out_extent);
   return (int)cudaGetLastError();
 }
 
@@ -176,15 +181,17 @@ int launch(const Levels& levels, const float* flow, float* out, int n_query, int
 // arrays of n_levels entries, extents the elements of each level's tensor.
 // flow: [n_query, 2] f32 of flow_extent elements; out: [n_query, n_levels *
 // (2r+1)^2] f32 of out_extent.  Stored level l is sampled at scale
-// 2^(l + level_offset).  The extents are read by the checked build only.
+// 2^(l + level_offset).  row0: the image row of the query grid's first row.
+// The extents are read by the checked build only.
 // Returns the launch's cudaError_t.
 extern "C" int tf_dense_lookup(int dtype, const void* const* vols, const int* lh,
                                const int* lw, const long long* extents, int n_levels,
                                const float* flow, long long flow_extent, float* out,
                                long long out_extent, long long n_query, int h, int w,
-                               int radius, int level_offset, void* stream) {
+                               int row0, int radius, int level_offset, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_query < 1 || n_query > INT_MAX || h < 1 ||
-      w < 1 || (long long)h * w > INT_MAX || radius < 0 || radius > kMaxRadius ||
+      w < 1 || (long long)h * w > INT_MAX || row0 < 0 || (long long)row0 + h > (1 << 24) ||
+      radius < 0 || radius > kMaxRadius ||
       level_offset < 0 || level_offset + n_levels > 30 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Levels levels;
@@ -196,8 +203,8 @@ extern "C" int tf_dense_lookup(int dtype, const void* const* vols, const int* lh
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(levels, flow, out, (int)n_query, h, w, radius, n_levels,
+    return launch<__nv_bfloat16>(levels, flow, out, (int)n_query, h, w, row0, radius, n_levels,
                                  level_offset, flow_extent, out_extent, s);
-  return launch<float>(levels, flow, out, (int)n_query, h, w, radius, n_levels, level_offset,
-                       flow_extent, out_extent, s);
+  return launch<float>(levels, flow, out, (int)n_query, h, w, row0, radius, n_levels,
+                       level_offset, flow_extent, out_extent, s);
 }

@@ -8,6 +8,12 @@
 // (gma.py:57-74); here keys >= S are masked inside the kernel and no
 // padding or segment ids exist.
 //
+// Queries and keys may differ in number: q [B, Sq, 128] against k, v
+// [B, Sk, 128].  One row strip of a frame (runtime/sharding.py
+// shard_spatial_forward) attends from its own Sq queries to all Sk keys of
+// the frame; elsewhere Sq = Sk.  Query tiles run over Sq, key tiles over Sk,
+// and the key tail is masked at Sk.
+//
 // Bound on an H100: operations.  At the 1080p tiled path (B = 6, S = 16200,
 // d = 128) one call is 4*B*S^2*d = 8.1e11 FLOP, 0.82 ms at the 989 TFLOP/s
 // bf16 tensor-core peak, against 75 MB of q/k/v/out traffic (0.02 ms); the
@@ -21,9 +27,10 @@
 //   each load completing on a `full` mbarrier; consumers hand a stage back
 //   through `empty` mbarriers, K as soon as the scores are read, V once the
 //   product that reads it has completed (wgmma.wait_group 0), never earlier.
-// - Tensor maps are 3-D [B, S, 128] with 128-byte swizzle, boxes of 128 rows
-//   x 64 columns (the swizzle's width), so a tile past S is zero-filled by
-//   the TMA unit and never reads the next batch row.
+// - Tensor maps are 3-D [B, Sq, 128] (Q) and [B, Sk, 128] (K, V) with
+//   128-byte swizzle, boxes of 128 rows x 64 columns (the swizzle's width),
+//   so a tile past Sq or Sk is zero-filled by the TMA unit and never reads
+//   the next batch row.
 // - S = Q K^T: 8 wgmma m64n128k16 per tile, A = Q and B = K from shared
 //   memory, both K-major.  O += P V: 8 wgmma m64n128k16 with A = P from
 //   registers (the score accumulator's layout is the A-fragment layout, so P
@@ -31,7 +38,7 @@
 //   (transposed).  Accumulation in f32.
 // - Online softmax in f32 registers, log2(e) folded into one FMA before
 //   exp2f; O is rescaled on every tile.  Zero-filled keys would score 0, so
-//   the last tile masks keys >= S to -inf; rows >= S are not stored.
+//   the last tile masks keys >= Sk to -inf; rows >= Sq are not stored.
 // - While one warpgroup runs its softmax the other's wgmmas keep the
 //   tensor cores busy; the two are not explicitly ping-ponged, and the
 //   softmax of a tile does not overlap that warpgroup's own products.
@@ -189,7 +196,7 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
     long long o_extent) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1 KB
@@ -202,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
   const int lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * kBlockM;
   const int b = blockIdx.y;
-  const int n_tiles = (S + kBlockN - 1) / kBlockN;
+  const int n_tiles = (Sk + kBlockN - 1) / kBlockN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -275,8 +282,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_k + 8 * st);
 
-    if ((j + 1) * kBlockN > S) {
-      const int valid = S - j * kBlockN;  // zero-filled keys past S score 0: mask them
+    if ((j + 1) * kBlockN > Sk) {
+      const int valid = Sk - j * kBlockN;  // zero-filled keys past Sk score 0: mask them
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         if (8 * (i >> 2) + 2 * tg + (i & 1) >= valid) sacc[i] = -CUDART_INF_F;
@@ -293,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // Every tile holds a key < S, so the max is finite from the first tile
+    // Every tile holds a key < Sk, so the max is finite from the first tile
     // on and exp2(-inf) = 0 rescales the empty initial state.
     const float a0 = exp2f((m0 - mx0) * kLog2e);
     const float a1 = exp2f((m1 - mx1) * kLog2e);
@@ -349,16 +356,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16_kernel(
   const float inv1 = 1.0f / l1;
   const int r0 = q0 + wg * 64 + wl * 16 + g;
   const int r1 = r0 + 8;
-  __nv_bfloat16* ob = o + (size_t)b * S * kD;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * kD;
 #pragma unroll
   for (int n = 0; n < kD / 8; ++n) {
     const int c = n * 8 + tg * 2;
-    TF_GUARD_IF(r0 < S, ob + (size_t)r0 * kD + c + 1 - o, o_extent);
-    TF_GUARD_IF(r1 < S, ob + (size_t)r1 * kD + c + 1 - o, o_extent);
-    if (r0 < S)
+    TF_GUARD_IF(r0 < Sq, ob + (size_t)r0 * kD + c + 1 - o, o_extent);
+    TF_GUARD_IF(r1 < Sq, ob + (size_t)r1 * kD + c + 1 - o, o_extent);
+    if (r0 < Sq)
       *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * kD + c) =
           pack_f32(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
-    if (r1 < S)
+    if (r1 < Sq)
       *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * kD + c) =
           pack_f32(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
   }
@@ -373,17 +380,17 @@ struct Extents {  // elements of q, k, v and o (bounds guards)
 // One warp per query row; lane i holds head dims 4i..4i+3.
 __global__ void __launch_bounds__(32 * kF32Warps) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int S, long long rows,
+    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, long long rows,
     const Extents extent) {
   const long long row = (long long)blockIdx.x * kF32Warps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
-  const size_t base = (size_t)(row / S) * S * kD;
+  const size_t base = (size_t)(row / Sq) * Sk * kD;  // this batch row's keys
   TF_GUARD_SPAN((size_t)row * kD + 4 * lane, 4, extent.q);
   const float4 qv = reinterpret_cast<const float4*>(q + (size_t)row * kD)[lane];
   float m = -CUDART_INF_F, l = 0.0f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < S; ++j) {
+  for (int j = 0; j < Sk; ++j) {
     TF_GUARD_SPAN(base + (size_t)j * kD + 4 * lane, 4, extent.k);
     TF_GUARD_SPAN(base + (size_t)j * kD + 4 * lane, 4, extent.v);
     const float4 kv = reinterpret_cast<const float4*>(k + base + (size_t)j * kD)[lane];
@@ -448,18 +455,18 @@ static bool qkv_map(CUtensorMap* map, const void* ptr, int B, int S) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// q, k, v, o: [B, S, 128] contiguous, 16-byte aligned.  dtype: 0 = bf16,
-// 1 = f32.  extents: host array of the elements of q, k, v and o, read by
-// the checked build only.  Returns the launch's cudaError_t.
+// q, o: [B, Sq, 128], k, v: [B, Sk, 128], contiguous, 16-byte aligned.
+// dtype: 0 = bf16, 1 = f32.  extents: host array of the elements of q, k, v
+// and o, read by the checked build only.  Returns the launch's cudaError_t.
 extern "C" int tf_flash_attention_fwd(int dtype, const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
+                                      const void* v, void* o, int B, int Sq, int Sk,
                                       const long long* extents, void* stream) {
-  if (B < 1 || S < 1 || B > 65535 || (dtype != 0 && dtype != 1))
+  if (B < 1 || Sq < 1 || Sk < 1 || B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     CUtensorMap tq, tk, tv;
-    if (!qkv_map(&tq, q, B, S) || !qkv_map(&tk, k, B, S) || !qkv_map(&tv, v, B, S))
+    if (!qkv_map(&tq, q, B, Sq) || !qkv_map(&tk, k, B, Sk) || !qkv_map(&tv, v, B, Sk))
       return (int)cudaErrorInvalidValue;
     // A function's shared-memory limit is set per device: once for each
     // card this process launches on.
@@ -472,15 +479,15 @@ extern "C" int tf_flash_attention_fwd(int dtype, const void* q, const void* k,
       if (rc != cudaSuccess) return (int)rc;
       if (dev < 64) configured[dev] = true;
     }
-    const dim3 grid((unsigned)((S + kBlockM - 1) / kBlockM), (unsigned)B);
+    const dim3 grid((unsigned)((Sq + kBlockM - 1) / kBlockM), (unsigned)B);
     flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, extents[3]);
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, extents[3]);
   } else {
-    const long long rows = (long long)B * S;
+    const long long rows = (long long)B * Sq;
     const unsigned blocks = (unsigned)((rows + kF32Warps - 1) / kF32Warps);
     flash_fwd_f32_kernel<<<blocks, 32 * kF32Warps, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, rows,
+        static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, rows,
         Extents{extents[0], extents[1], extents[2], extents[3]});
   }
   return (int)cudaGetLastError();

@@ -115,6 +115,16 @@ def library(name: str, checked: Optional[bool] = None) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, under a lock: the strips of a
+    spatially sharded call launch from threads of their own."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check_launch(rc: int, kernel: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if rc != 0:

@@ -21,6 +21,7 @@ from typing import List, Sequence
 
 import torch
 
+from ._build import count_launch
 from ._nograd import refuses_gradient
 from .denselookup import check_volume_levels, launch_volume_patch
 
@@ -57,7 +58,7 @@ def band_patch_levels(vols: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
     if dev.type != "cuda":
         raise ValueError(f"band_patch_level runs on cpu or cuda, not {dev}")
     outs = launch_volume_patch(vols, rrs, ccs, "band", "band_patch_level")
-    band_patch_level.launches += 1
+    count_launch(band_patch_level)
     return outs
 
 

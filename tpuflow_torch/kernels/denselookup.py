@@ -12,6 +12,9 @@ x-major channel order (c = lvl*(2r+1)^2 + col*(2r+1) + row).
 `dense_lookup` launches csrc/dense_lookup.cu for CUDA tensors and runs
 `dense_lookup_plain` for CPU tensors.  `level_offset` = k samples stored
 level l at scale 2^(l+k): a pyramid that holds only the levels from k on.
+`row0` is the image row of the query grid's first row: the queries of one
+row strip of a frame (runtime/sharding.py shard_spatial_forward) look up
+volumes of the whole frame's targets from their own rows.
 The kernel stages each query's patches in shared memory, one patch row per
 warp pass, so both versions take radii 0..MAX_RADIUS only.
 
@@ -31,7 +34,7 @@ from typing import List, Sequence
 
 import torch
 
-from ._build import check_launch, library
+from ._build import check_launch, count_launch, library
 from ._nograd import refuses_gradient
 
 MAX_LEVELS = 8
@@ -41,7 +44,7 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def dense_lookup_plain(
-    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0
+    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0, row0: int = 0
 ) -> torch.Tensor:
     """Plain PyTorch version: a gather of each query's (2r+2)^2 patch, zeros
     outside the plane, then the f32 bilinear in the kernel's order."""
@@ -51,7 +54,7 @@ def dense_lookup_plain(
     ns = side - 1
     dev = flow.device
     ys, xs = torch.meshgrid(
-        torch.arange(h, device=dev, dtype=torch.float32),
+        torch.arange(row0, row0 + h, device=dev, dtype=torch.float32),
         torch.arange(w, device=dev, dtype=torch.float32),
         indexing="ij",
     )
@@ -88,7 +91,7 @@ def _lib():
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -117,18 +120,21 @@ def _check(volumes: Sequence[torch.Tensor], flow: torch.Tensor) -> None:
 
 @refuses_gradient
 def dense_lookup(
-    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0
+    volumes: Sequence[torch.Tensor], flow: torch.Tensor, radius: int, level_offset: int = 0, row0: int = 0
 ) -> torch.Tensor:
     """[N, lh, lw] levels + flow [B, h, w, 2] f32 -> [B, h, w, L*(2r+1)^2]
-    f32.  CPU tensors: the plain version; CUDA tensors: the kernel, one
-    launch for all levels."""
+    f32, the query grid's rows at image rows row0 .. row0 + h - 1.  CPU
+    tensors: the plain version; CUDA tensors: the kernel, one launch for all
+    levels."""
     _check(volumes, flow)
     if not 0 <= radius <= MAX_RADIUS:
         raise ValueError(f"radius {radius} out of range 0..{MAX_RADIUS}")
     if not 0 <= level_offset <= 30 - len(volumes):
         raise ValueError(f"level_offset {level_offset} out of range")
+    if not 0 <= row0 <= 2**24 - flow.shape[1]:
+        raise ValueError(f"row0 {row0} out of range 0..2^24 - h")
     if flow.device.type == "cpu":
-        return dense_lookup_plain(volumes, flow, radius, level_offset)
+        return dense_lookup_plain(volumes, flow, radius, level_offset, row0)
     if flow.device.type != "cuda":
         raise ValueError(f"dense_lookup runs on cpu or cuda, not {flow.device}")
     b, h, w, _ = flow.shape
@@ -145,10 +151,10 @@ def dense_lookup(
         rc = fn(
             _DTYPE_CODES[volumes[0].dtype], ptrs, lhs, lws, extents, nl,
             flow.data_ptr(), flow.numel(), out.data_ptr(), out.numel(),
-            b * h * w, h, w, radius, level_offset, stream,
+            b * h * w, h, w, row0, radius, level_offset, stream,
         )
     check_launch(rc, "dense_lookup")
-    dense_lookup.launches += 1
+    count_launch(dense_lookup)
     return out
 
 
@@ -284,7 +290,7 @@ def dense_patch_levels(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tens
     if dev.type != "cuda":
         raise ValueError(f"dense_patch_level runs on cpu or cuda, not {dev}")
     outs = launch_volume_patch(volumes, rrs, ccs, "flat", "dense_patch_level")
-    dense_patch_level.launches += 1
+    count_launch(dense_patch_level)
     return outs
 
 

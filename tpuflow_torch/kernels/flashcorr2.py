@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from ._build import check_launch, library
+from ._build import check_launch, count_launch, library
 from ._nograd import refuses_gradient
 from .denselookup import check_patch_indices
 
@@ -156,7 +156,7 @@ def corr_patch(wrapper, plain, f1, f2l, rr, cc, grid_w: Optional[int] = None) ->
             stream,
         )
     check_launch(rc, name)
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out
 
 

@@ -11,12 +11,17 @@ GroupNorm `scale` -> `weight`.  Twins encoders gain the upstream `.svt.`
 scope; the cnn encoder's `layer{i}_{j}` become `layer{i}.{j}`.
 `flax_tree_from_state_dict` is the inverse (the reference's rewrite itself),
 which the native checkpoints of runtime/checkpoint.py are written with.
+
+`describe_state_dict` and `suggest_mapping` (tpuflow/runtime/convert.py:237)
+read a checkpoint against the port's own state-dict names: a shape report by
+top-level module, and a greedy proposal of a name map for a checkpoint
+whose names differ.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -144,4 +149,47 @@ def load_torch_state_dict(path: str, ignore: Sequence[str] = VIDEOFLOW_IGNORE) -
             k = k[len("module."):]
         if not any(re.search(p, k) for p in ignore):
             out[k] = v
+    return out
+
+
+def describe_state_dict(state_dict, max_rows: int = 0) -> str:
+    """Shape report of a state dict (tensors or arrays), grouped by the
+    first name component, as the JAX package's describe_state_dict prints
+    it; `max_rows` > 0 lists at most that many tensors per group."""
+    groups: Dict[str, list] = {}
+    for k, v in state_dict.items():
+        groups.setdefault(k.split(".")[0], []).append((k, tuple(v.shape)))
+    lines, total = [], 0
+    for g in sorted(groups):
+        n_params = sum(int(np.prod(s)) for _, s in groups[g])
+        total += n_params
+        lines.append(f"[{g}] {len(groups[g])} tensors, {n_params / 1e6:.2f}M params")
+        for k, s in groups[g][:max_rows] if max_rows else groups[g]:
+            lines.append(f"  {k:<60} {s}")
+    lines.append(f"TOTAL: {total / 1e6:.2f}M params, {len(state_dict)} tensors")
+    return "\n".join(lines)
+
+
+def suggest_mapping(state_dict, target) -> Dict[str, Optional[str]]:
+    """Greedy proposal of a map from a checkpoint's names to the port's:
+    each checkpoint tensor, in order, takes the unclaimed `target` name (a
+    model's state dict, or {name: shape}) of its shape that shares the most
+    name tokens with it, or None.  The port's modules keep the layouts of
+    the upstream checkpoints, so shapes match as they are; a starting
+    point for a hand-made table, never used to load."""
+
+    def tokens(name: str) -> set:
+        return set(name.replace(".", "/").replace("_", "/").lower().split("/"))
+
+    shapes = {k: tuple(getattr(v, "shape", v)) for k, v in target.items()}
+    claimed, out = set(), {}
+    for key, val in state_dict.items():
+        cands = [k for k, s in shapes.items() if k not in claimed and s == tuple(val.shape)]
+        if not cands:
+            out[key] = None
+            continue
+        mine = tokens(key)
+        best = max(cands, key=lambda k: len(mine & tokens(k)))
+        claimed.add(best)
+        out[key] = best
     return out

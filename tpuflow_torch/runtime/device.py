@@ -7,7 +7,7 @@ refused."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -46,6 +46,14 @@ class DeviceManager:
         if requested == "tpu":
             raise ValueError("device 'tpu': this package runs on CUDA cards or the CPU ('auto', 'cuda', 'cpu')")
         return resolve_device("cuda" if requested == "auto" else requested)
+
+    @staticmethod
+    def devices(platform: Optional[str] = None) -> List[torch.device]:
+        """The devices of a platform: 'cpu' the CPU; anything else the
+        visible cards, or the CPU where there is none (as jax.devices()
+        falls back to the default backend's)."""
+        n = torch.cuda.device_count() if platform != "cpu" else 0
+        return [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
 
     @staticmethod
     def get_device_info(requested: str = "auto") -> Dict:

@@ -73,8 +73,10 @@ from .tiles import (
 )
 from .windows import centered_window_indices, trailing_window_indices
 
-# Sentinel checkpoint path: explicit opt-in to seeded random weights.
+# Sentinel checkpoint paths: explicit opt-in to seeded random weights (the
+# second is the one bench.py and the JAX package's benchmarks pass).
 RANDOM_INIT = "__random_init__"
+BENCH_RANDOM_INIT = "__bench_random_init__"
 
 # Window batching on the card: the correlation volumes of one batch may take
 # the card's free memory less this share of it, which is left to the
@@ -232,14 +234,15 @@ class FlowEngine:
         by its suffix as the JAX engine routes it (`.msgpack` / `.tpuflow`:
         the native format of runtime/checkpoint.py; anything else a torch
         `.pth`), else —
-        only with `allow_random_init=True` or the RANDOM_INIT sentinel —
-        seeded random weights.  A missing checkpoint raises."""
+        only with `allow_random_init=True` or a RANDOM_INIT or
+        BENCH_RANDOM_INIT sentinel — seeded random weights (`init_params`).
+        A missing checkpoint raises."""
         self._replicas = None
         if self.params is not None:
             self.model.load_state_dict(self.params, strict=True)
             self._loaded = True
             return "preloaded"
-        if checkpoint_path == RANDOM_INIT:
+        if checkpoint_path in (RANDOM_INIT, BENCH_RANDOM_INIT):
             checkpoint_path, allow_random_init = None, True
         path = checkpoint_path or self.config.checkpoint_path
         if path and os.path.exists(path):
@@ -259,11 +262,20 @@ class FlowEngine:
                 "pass allow_random_init=True to run with random weights "
                 "(outputs will be meaningless)."
             )
-        dev, dt = self.device, self.model.dtype
-        init_random_(self.model.float().cpu(), self.seed)
-        self.model.to(device=dev, dtype=dt)
+        self.model.load_state_dict(self.init_params(), strict=True)
         self._loaded = True
         return f"random-init (checkpoint not found: {path})"
+
+    def init_params(self, h: int = 64, w: int = 64) -> Dict[str, torch.Tensor]:
+        """Seeded random weights as a state dict in the model's devices and
+        dtypes, without loading them: the weights that load_model's random
+        init loads (init_random_, drawn on the CPU in f32).  h and w are the
+        JAX package's init frame size (tpuflow/runtime/engine.py:185); the
+        port's weights do not depend on one."""
+        model = copy.deepcopy(self.model).to(device="cpu", dtype=torch.float32)
+        init_random_(model, self.seed)
+        ref = self.model.state_dict()
+        return {k: v.to(device=ref[k].device, dtype=ref[k].dtype) for k, v in model.state_dict().items()}
 
     def is_model_loaded(self) -> bool:
         return self._loaded

@@ -14,20 +14,30 @@ tpuflow/runtime/sharding.py on torch).
 - `epe_loss`, `make_train_step` and `shard_train_step`: the supervised EPE
   step, and its data-parallel form (gradients averaged by shard size, also
   over the processes of an initialized torch.distributed world).
-
-`shard_spatial_forward` (one frame's height over 'spatial', with halo
-exchanges) is not ported.
+- `spatial_sharding` and `shard_spatial_forward`: one frame's height split
+  over the mesh's 'spatial' slots (and the batch over 'data'), with the
+  halo exchanges and gathers of core/strips.py.  The JAX package jits an
+  arbitrary function and lets GSPMD partition it; torch cannot partition an
+  arbitrary function, so the port's version takes the model (MOFNet or
+  BOFNet) and runs the model's own forward on every strip, one host thread
+  per mesh slot.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+
+from ..core import strips
+from ..core.mofnet import MOFNet
 
 
 class Mesh:
@@ -121,6 +131,144 @@ def shard_batch_forward(fn: Callable, mesh: Mesh, batch_ndim: int) -> Callable:
         return torch.cat([o.to(devices[0]) for o in outs])
 
     return sharded
+
+
+# ---------------------------------------------------------------------------
+# Spatial sharding
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SpatialSharding:
+    """The port's counterpart of the JAX package's NamedSharding for frames
+    split by height: `spec[i]` names the mesh axis that splits dim i ('data'
+    for dim 0, 'spatial' for the height), None where the dim stays whole."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+
+    @property
+    def h_axis(self) -> int:
+        return self.spec.index("spatial")
+
+    def slots(self) -> np.ndarray:
+        """The devices of the mesh as a ('data', 'spatial') grid: an axis the
+        mesh lacks has one slot, and of any other axis the first slot is
+        taken (as Mesh.data_devices)."""
+        grid = self.mesh.devices
+        names = list(self.mesh.axis_names)
+        for axis in ("data", "spatial"):
+            if axis not in names:
+                grid, names = grid[..., None], names + [axis]
+        grid = np.moveaxis(grid, [names.index("data"), names.index("spatial")], [0, 1])
+        return grid.reshape(grid.shape[0], grid.shape[1], -1)[:, :, 0]
+
+
+def spatial_sharding(mesh: Mesh, ndim: int, h_axis: int) -> SpatialSharding:
+    """Shard a spatial (height) dim over 'spatial', dim 0 over 'data'."""
+    spec = [None] * ndim
+    spec[0] = "data"
+    spec[h_axis] = "spatial"
+    return SpatialSharding(mesh, tuple(spec))
+
+
+class SpatialForward:
+    """`sharded(params, frames)`: see shard_spatial_forward.  The model's
+    options (corr_impl, dense_lookup, gma_impl, materialize_threshold) are
+    read when this is made.  `groups` holds the strip groups of the last call
+    (their `fetched_bytes` count what the strips took from each other)."""
+
+    def __init__(self, model: nn.Module, sharding: SpatialSharding, batch_ndim: int):
+        self.sharding = sharding
+        self.batch_ndim = batch_ndim
+        self.devices = sharding.slots()
+        # One copy of the module per slot, on no device: each slot's thread
+        # calls its own copy with its replica of the parameters.
+        self.replicas = [copy.deepcopy(model).to("meta") for _ in range(self.devices.size)]
+        self.groups: List[strips.StripGroup] = []
+
+    def __call__(self, params: Dict[str, torch.Tensor], frames: torch.Tensor):
+        h_axis = self.sharding.h_axis
+        if frames.dim() != self.batch_ndim:
+            raise ValueError(f"frames of {frames.dim()} dims, expected {self.batch_ndim}")
+        n_data, n_spatial = self.devices.shape
+        h = frames.shape[h_axis]
+        if h % 8 or h // 8 < n_spatial:
+            raise ValueError(f"height {h} must be a multiple of 8 with a feature row for each of "
+                             f"{n_spatial} 'spatial' slots")
+        rows = shard_sizes(h // 8, n_spatial)
+        flat = list(self.devices.flat)
+        replicas = replicate_params(params, flat)
+        shards = split_batch(frames, n_data)
+        self.groups = [strips.StripGroup(rows) for _ in range(n_data)]
+        outs: Dict[Tuple[int, int], object] = {}
+        errors: List[BaseException] = []
+        grad, inference = torch.is_grad_enabled(), torch.is_inference_mode_enabled()
+
+        def run(d: int, s: int) -> None:
+            slot = d * n_spatial + s
+            dev = self.devices[d, s]
+            try:
+                with torch.inference_mode(inference), torch.set_grad_enabled(grad), \
+                        (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()):
+                    x = shards[d].narrow(h_axis, 8 * sum(rows[:s]), 8 * rows[s]).to(dev)
+                    token = strips.enter(strips.Strip(self.groups[d], s)) if n_spatial > 1 else None
+                    try:
+                        outs[d, s] = torch.func.functional_call(self.replicas[slot], replicas[slot], (x,))
+                    finally:
+                        if token is not None:
+                            strips.leave(token)
+            except BaseException as exc:  # noqa: BLE001 - handed to the caller below
+                errors.append(exc)
+                for group in self.groups:
+                    group.abort()
+
+        threads = [threading.Thread(target=run, args=(d, s), name=f"strip-{d}-{s}", daemon=True)
+                   for d in range(n_data) if shards[d].shape[0] for s in range(n_spatial)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            # The strip that failed first, not the strips its abort stopped.
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)), errors[0])
+        first = self.devices[0, 0]
+
+        def assemble(parts_of):
+            return torch.cat([torch.cat([parts_of(d, s).to(first) for s in range(n_spatial)], dim=2)
+                              for d in range(n_data) if shards[d].shape[0]])
+
+        sample = outs[0, 0]
+        if isinstance(sample, tuple):
+            return tuple(assemble(lambda d, s, i=i: outs[d, s][i]) for i in range(len(sample)))
+        return assemble(lambda d, s: outs[d, s])
+
+
+def shard_spatial_forward(model: nn.Module, mesh: Mesh, batch_ndim: int, h_axis: int) -> SpatialForward:
+    """`sharded(params, frames)`: `model` (a MOFNet or BOFNet, Twins or cnn
+    encoder) on frames [B, T, H, W, 3] (H and W multiples of 8) with the
+    height split over the mesh's 'spatial' slots and dim 0 over 'data'
+    (`spatial_sharding`); `params` is its state dict, replicated to every
+    slot as `replicate_params` does.  Returns what `model(frames)` returns,
+    on the mesh's first device.
+
+    Each slot's strip is whole feature rows (8 pixel rows), as even as
+    `shard_sizes` makes them (135 rows over four slots: 34, 34, 34, 33),
+    and one host thread per slot runs the model's own forward on it with
+    the strip current (core/strips.py): convolutions fetch their halos,
+    norms sum their statistics, the windowed attention fetches its windows'
+    rows, the global attention, the correlation and GMA read every strip's
+    rows.  The
+    value is the unsharded forward's up to float reassociation; with one
+    'spatial' slot no strip is made and each 'data' slot runs the forward as
+    it is.  One strip's exception makes the call raise it, after every
+    thread has ended.  The JAX package's version jits any `fn(params,
+    frames)` under GSPMD; MemFlow is not reached there (its only callers run
+    MOFNet) and is refused here."""
+    if not isinstance(model, MOFNet):
+        raise TypeError(f"shard_spatial_forward runs a MOFNet or BOFNet, not {type(model).__name__}")
+    if (batch_ndim, h_axis) != (5, 2):
+        raise ValueError(f"MOFNet takes frames [B, T, H, W, 3]: batch_ndim 5 and h_axis 2, "
+                         f"got {batch_ndim} and {h_axis}")
+    return SpatialForward(model, spatial_sharding(mesh, batch_ndim, h_axis), batch_ndim)
 
 
 # ---------------------------------------------------------------------------

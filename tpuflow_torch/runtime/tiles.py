@@ -1,5 +1,5 @@
-"""Tile-mode grid math, grouped extraction and paste (copy of the parts of
-tpuflow/runtime/tiles.py the stride-1 tiled path uses).
+"""Tile-mode grid math, extraction and paste (copy of
+tpuflow/runtime/tiles.py).
 
 Grid layout parity with videoflow_processor.py:73-110; the 'balanced'
 layout gives every tile of a frame one shape (1920x1080 -> two 960x1080
@@ -9,9 +9,20 @@ tiles), so one batched forward covers all tiles of a window.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class TileInfo:
+    x: int
+    y: int
+    width: int
+    height: int
+    col: int
+    row: int
 
 
 def resolve_tile_layout(layout: str | None = None) -> str:
@@ -163,3 +174,19 @@ def paste_tile_flows(
         wacc[sy0:sy1, sx0:sx1] += wpatch
 
     return acc / np.maximum(wacc, 1e-6)
+
+
+def extract_tile_batch(frames: np.ndarray, tiles_info: List[dict], tile_size: int, overlap: int = 0) -> np.ndarray:
+    """Every tile of one window [T, H, W, C] stacked to [num_tiles, T,
+    tile_size + 2 overlap, tile_size + 2 overlap, C], edge-replicated where
+    an edge tile or its halo leaves the frame."""
+    t, h, w, c = frames.shape
+    size = tile_size + 2 * overlap
+    out = np.empty((len(tiles_info), t, size, size, c), dtype=frames.dtype)
+    for i, info in enumerate(tiles_info):
+        x0, y0 = info["x"] - overlap, info["y"] - overlap
+        x1, y1 = info["x"] + tile_size + overlap, info["y"] + tile_size + overlap
+        sx0, sy0, sx1, sy1 = max(0, x0), max(0, y0), min(w, x1), min(h, y1)
+        pad = ((0, 0), (sy0 - y0, y1 - sy1), (sx0 - x0, x1 - sx1), (0, 0))
+        out[i] = np.pad(frames[:, sy0:sy1, sx0:sx1], pad, mode="edge")
+    return out

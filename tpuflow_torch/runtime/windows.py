@@ -27,3 +27,10 @@ def trailing_window_indices(num_frames: int, frame_idx: int, length: int) -> np.
     start = frame_idx + 1 - length
     seq = [max(0, i) for i in range(start, frame_idx + 1)]
     return np.asarray(seq, dtype=np.int32)
+
+
+def all_window_indices(num_frames: int, length: int, kind: str = "centered") -> np.ndarray:
+    """Index matrix [num_frames, length] of every frame's window ('centered'
+    or else trailing)."""
+    fn = centered_window_indices if kind == "centered" else trailing_window_indices
+    return np.stack([fn(num_frames, i, length) for i in range(num_frames)])
