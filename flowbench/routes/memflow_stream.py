@@ -1,0 +1,70 @@
+"""MemFlow streaming: FlowEngine.stream_flows on whole segments of the
+traffic, the memory carried within a segment and empty at its start, as the
+CLI's --model memflow calls it.  Unit: a segment."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import traffic
+from ..models import program_engine
+from ..reference import plain
+
+
+class Route:
+    RATE = "frames_per_s"
+    # Stages of a streamed frame that name the traced call's idle gaps.
+    SPANS = ("tpuflow_torch.runtime.engine:FlowEngine._upload",
+             "tpuflow_torch.runtime.engine:_Fetch.result",
+             "tpuflow_torch.core.memflownet:MemFlowNet.encode",
+             "tpuflow_torch.core.memflownet:MemFlowNet.refine",
+             "tpuflow_torch.core.memflownet:MemoryReader.forward")
+
+    def __init__(self, run):
+        self.run = run
+
+    def setup(self) -> None:
+        run = self.run
+        sd, self.ref_state = run.draw_weights()
+        run.engine = program_engine(run.config, sd, run.device)
+        tp = run.traffic
+        self.segments = [traffic.segment(tp, run.seed, k, run.device) for k in range(tp["segments"])]
+
+    def warmup(self) -> None:
+        self.run.engine.stream_flows(self.segments[0][: self.run.cell["warmup_frames"]])
+
+    def window(self, window, tracer) -> None:
+        self.delivered = []
+        k = 0
+        while not window.closed:
+            s = k % len(self.segments)
+            seg = self.segments[s]
+            out = []
+
+            def call(seg=seg, out=out):
+                out.append(self.run.engine.stream_flows(seg))
+                return len(seg)
+
+            window.open()
+            tracer.call(call, k)
+            if window.done(len(seg)):
+                self.delivered.append((s, out[0]))
+            k += 1
+
+    def release(self) -> None:
+        pass
+
+    def check(self, window) -> dict:
+        """One delivered segment drawn from the seed, replayed by the
+        reference from its first frame up to a frame drawn from the seed
+        past the memory's capacity (so the ring has wrapped); every flow of
+        the replay against the delivered one."""
+        run = self.run
+        rng = np.random.default_rng(run.seed)
+        s, flows = self.delivered[int(rng.integers(len(self.delivered)))]
+        cap = run.config["reference_args"]["memory_capacity"]
+        upto = min(len(flows) - 1, cap + 1 + int(rng.integers(run.cell["check_past_capacity"])))
+        ref = plain.memflow_replay(run.reference(self.ref_state), self.segments[s], upto, run.device)
+        self.frame_gaps = [plain.flow_gaps(flows[j], ref[j]) for j in range(upto + 1)]
+        return {"flow_epe_px": max(g[0] for g in self.frame_gaps),
+                "flow_epe_max_px": max(g[1] for g in self.frame_gaps)}
