@@ -1097,12 +1097,18 @@ def profile_refine(model, enc, *args) -> dict:
 
 
 def reset_launches(kernels) -> None:
-    for k in kernels.values():
-        k.launches = 0
+    """Zero the tracing registry's counters (runtime/profiling.py), the
+    kernels' launches among them."""
+    from tpuflow_torch.runtime import profiling
+
+    profiling.clear()
 
 
 def read_launches(kernels) -> dict:
-    return {name: k.launches for name, k in kernels.items()}
+    from tpuflow_torch.runtime import profiling
+
+    counters = profiling.snapshot()["counters"]
+    return {name: counters.get(f"kernels.{name}.launches", 0) for name in kernels}
 
 
 def phase_end_to_end(engine, kernels) -> dict:

@@ -371,10 +371,18 @@ def parser_table(parser) -> list:
             for a in parser._actions]
 
 
+# Flags of the port's CLI that the JAX CLI has not: they leave the
+# pipeline's configuration as it is.
+PORT_ONLY_FLAGS = (("--trace-dir",),)
+
+
 def test_parser_and_config_match_jax():
     """Every flag, default and choice of the JAX CLI, and args_to_config's
-    fields and model_config() for a set of flag combinations."""
-    assert parser_table(cli.build_parser()) == parser_table(jcli.build_parser())
+    fields and model_config() for a set of flag combinations; the port's own
+    flags come last."""
+    port = parser_table(cli.build_parser())
+    assert [row for row in port if row[0] not in PORT_ONLY_FLAGS] == parser_table(jcli.build_parser())
+    assert tuple(row[0] for row in port[-len(PORT_ONLY_FLAGS):]) == PORT_ONLY_FLAGS
     assert dataclasses.asdict(PipelineConfig()) == dataclasses.asdict(JaxPipelineConfig())
     for argv in ([], ["--tile", "--fast", "--taa", "--model", "memflow", "--stage", "kitti", "--save-flow", "both"],
                  ["--vf-architecture", "bof", "--vf-dataset", "things", "--vf-variant", "noise", "--encoder", "cnn",

@@ -50,6 +50,7 @@ from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level, d
 from tpuflow_torch.kernels.flashattn import flash_attention_fwd
 from tpuflow_torch.kernels.flashcorr import flash_patch_level
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
+from tpuflow_torch.runtime import profiling
 from tpuflow_torch.runtime.convert import state_dict_from_jax
 from tpuflow_torch.runtime.engine import FlowEngine
 from tpuflow_torch.runtime.sharding import (
@@ -413,12 +414,17 @@ def test_kernel_wrappers_refuse_a_gradient(name):
     """Every kernel entry runs its forward with grad enabled (the plain
     version here) and counts no launch on the CPU; a backward through its
     result raises and names the differentiable formulations."""
-    counters = [dense_lookup, dense_patch_level, band_patch_level, flash_attention_fwd, flash2_patch_level,
-                flash_patch_level]
-    before = [fn.launches for fn in counters]
+    counters = [f"kernels.{fn.__name__}.launches" for fn in (dense_lookup, dense_patch_level, band_patch_level,
+                                                             flash_attention_fwd, flash2_patch_level, flash_patch_level)]
+
+    def launches():
+        found = profiling.snapshot()["counters"]
+        return [found.get(c, 0) for c in counters]
+
+    before = launches()
     out = wrapper_calls()[name]()
     assert out.requires_grad and torch.isfinite(out).all()
-    assert [fn.launches for fn in counters] == before
+    assert launches() == before
     with pytest.raises(RuntimeError, match=r"dense_lookup='xla' and gma_impl='xla'"):
         out.float().sum().backward()
     with torch.no_grad():

@@ -37,7 +37,8 @@ from tpuflow_torch import compat
 from tpuflow_torch.config import ModelConfig
 from tpuflow_torch.pipeline.cache import FlowCacheManager
 from tpuflow_torch.runtime.engine import FlowEngine
-from tpuflow_torch.runtime.profiling import StageTimer, device_trace, flow_statistics
+from tpuflow_torch.runtime import profiling
+from tpuflow_torch.runtime.profiling import device_trace, flow_statistics
 from tpuflow_torch.tools import gui
 from tpuflow_torch.tools import visualizer
 from tpuflow_torch.tools.portable import EXCLUDE_SUFFIXES, PortableBuilder
@@ -388,17 +389,7 @@ def test_flow_statistics_match_jax():
     assert all(v.device.type == "cpu" and v.dim() == 0 for v in t.values())
 
 
-def test_stage_timer_and_device_trace(tmp_path):
-    import time
-
-    t = StageTimer()
-    for _ in range(2):
-        with t.stage("a"):
-            time.sleep(0.01)
-    with t.stage("b"):
-        pass
-    assert t.counts["a"] == 2 and t.totals["a"] >= 0.02 and t.mean("a") >= 0.01 and t.mean("missing") == 0.0
-    assert "a" in t.report() and "b" in t.report()
+def test_device_trace_writes_a_chrome_trace(tmp_path):
     with device_trace(None) as prof:
         assert prof is None
     logdir = tmp_path / "trace"
@@ -407,3 +398,27 @@ def test_stage_timer_and_device_trace(tmp_path):
     traces = list(logdir.glob("*.pt.trace.json*"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
     assert any("mm" in e.key for e in prof.key_averages())
+
+
+def test_device_trace_holds_spans_as_function_events(tmp_path):
+    """A span opened under device_trace is a host event of the Chrome trace
+    around the work it holds, recorded as a function (cpu_op), not as a user
+    annotation, which the profiler would mirror on the device's timeline."""
+    import json
+
+    profiling.clear()
+    profiling.enable()
+    try:
+        with device_trace(str(tmp_path)):
+            with profiling.span("tpuflow.test.matmul"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    finally:
+        profiling.disable()
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    (sp,) = [e for e in events if e["name"] == "tpuflow.test.matmul"]
+    assert sp["cat"] == "cpu_op"
+    mm = [e for e in events if e["name"] == "aten::mm"]
+    assert mm and all(sp["ts"] <= e["ts"] and e["ts"] + e["dur"] <= sp["ts"] + sp["dur"] for e in mm)
+    assert profiling.snapshot()["spans"]["tpuflow.test.matmul"]["calls"] == 1
+    profiling.clear()

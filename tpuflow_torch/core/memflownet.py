@@ -33,6 +33,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..runtime.profiling import span
 from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
 from .gma import Attention, _pick_chunk, conv1x1, materialize_attention
@@ -137,6 +138,7 @@ class MemoryReader(nn.Module):
         self.use_rope = use_rope
         self.out_proj = nn.Conv2d(value_dim, 128, 1)
 
+    @span("tpuflow.memflow.read")
     def forward(self, query: torch.Tensor, mem: MemoryState) -> torch.Tensor:
         """query [B, h, w, dk] -> readout [B, h, w, 128] in query's dtype."""
         b, h, w, dk = query.shape
@@ -236,6 +238,7 @@ class MemFlowNet(nn.Module):
             return corr.lookup(flow, self.corr_radius, impl=self.dense_lookup)
         return corr.lookup(flow, self.corr_radius)
 
+    @span("tpuflow.memflow.encode")
     def encode(self, frame_pair: torch.Tensor) -> MemEncoded:
         """frame_pair [B, 2, H, W, 3] in [0, 1] -> what the readout and the
         refinement read: fnet on both frames, cnet on frame 0."""
@@ -255,6 +258,7 @@ class MemFlowNet(nn.Module):
         )
         return MemEncoded(net, inp, q, k, attn, corr, conv1x1(inp, self.qk_proj))
 
+    @span("tpuflow.memflow.refine")
     def refine(
         self, enc: MemEncoded, mem_read: torch.Tensor, flow_init: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -280,9 +284,14 @@ class MemFlowNet(nn.Module):
     ) -> Tuple[torch.Tensor, MemoryState, torch.Tensor]:
         enc = self.encode(frame_pair)
         flow_up, flow_low, motion = self.refine(enc, self.memory_reader(enc.qk, memory), flow_init)
-        b, h8, w8, _ = flow_low.shape
+        return flow_up, self.write(memory, enc.qk, motion), flow_low
+
+    @span("tpuflow.memflow.write")
+    def write(self, memory: MemoryState, qk: torch.Tensor, motion: torch.Tensor) -> MemoryState:
+        """This frame's key qk [B, h, w, dk] and the value projected from the
+        last step's motion features [B, h, w, 128], written to the memory."""
+        b, h8, w8, _ = qk.shape
         value = conv1x1(motion, self.v_proj)
-        new_memory = memory_write(
-            memory, enc.qk.reshape(b, h8 * w8, self.key_dim), value.reshape(b, h8 * w8, self.value_dim)
+        return memory_write(
+            memory, qk.reshape(b, h8 * w8, self.key_dim), value.reshape(b, h8 * w8, self.value_dim)
         )
-        return flow_up, new_memory, flow_low

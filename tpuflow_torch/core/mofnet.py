@@ -43,6 +43,7 @@ from typing import Any, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..runtime.profiling import span
 from . import strips
 from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
@@ -138,6 +139,7 @@ class MOFNet(nn.Module):
             raise ValueError(f"gma_impl {impl!r}: expected one of {GMA_IMPLS}")
         self.update_block.aggregator.impl = impl
 
+    @span("tpuflow.mof.encode")
     def frame_features(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, H, W, 3] in [0, 1] -> (fnet features [M, H/8, W/8, 256], cnet
         context [M, H/8, W/8, 256]).  Both encoders are per frame, so the
@@ -193,6 +195,7 @@ class MOFNet(nn.Module):
         enc = MOFEncoded(stack(1), stack(0), stack(2), stack(3), tuple(corr_fwd), tuple(corr_bwd), m)
         return self.refine(enc)
 
+    @span("tpuflow.mof.encode")
     def encode(self, frames: torch.Tensor) -> MOFEncoded:
         """frames [B, T, H, W, 3] in [0, 1] -> the encoded window state (cnet
         runs on the interior frames only)."""
@@ -220,6 +223,7 @@ class MOFNet(nn.Module):
             return corr.lookup(flow, self.corr_radius, impl=self.dense_lookup)
         return corr.lookup(flow, self.corr_radius)
 
+    @span("tpuflow.mof.refine")
     def refine(self, enc: MOFEncoded) -> Tuple[torch.Tensor, torch.Tensor]:
         """Iterative refinement + convex upsample -> ([B, N, H, W, 2],) x 2.
         In a strip, GMA's keys are the whole frame's (gathered once here),

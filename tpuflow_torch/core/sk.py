@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..runtime.profiling import span
 from . import strips
 from .encoders import gelu
 from .gma import Aggregate
@@ -123,6 +124,7 @@ class SKUpdateBlockMOF(nn.Module):
         # GMA's q/k and v have the context's width (Attention in MOFNet).
         self.aggregator = Aggregate(dim=128, dim_head=context_dim)
 
+    @span("tpuflow.sk.update")
     def step(self, net, mhs, inp, corr, flow, q, k, bs: int, attn=None):
         """The refinement step without the mask head (NHWC in and out):
         net, inp [B*N, h, w, 128], corr [B*N, h, w, 2*L*(2r+1)^2], flow
@@ -142,6 +144,7 @@ class SKUpdateBlockMOF(nn.Module):
         delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))
         return net, mhs.permute(0, 1, 3, 4, 2), delta
 
+    @span("tpuflow.sk.update")
     def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
         """[B*N, h, w, 128] -> [B*N, h, w, 2*576] convex-upsample weights."""
         x = self.mask[1](strips.conv_same(self.mask[0], nhwc_to_nchw(net)))
@@ -203,6 +206,7 @@ class SKUpdateBlockMem(nn.Module):
         )
         self.aggregator = Aggregate(dim=128)
 
+    @span("tpuflow.sk.update")
     def step(self, net, inp, corr, flow, q, k, mem_read, attn=None):
         """The refinement step without the mask head (NHWC in and out): net,
         inp [B, h, w, 128], corr [B, h, w, L*(2r+1)^2], flow [B, h, w, 2]
@@ -215,6 +219,7 @@ class SKUpdateBlockMem(nn.Module):
         delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))
         return net, motion, delta
 
+    @span("tpuflow.sk.update")
     def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
         """[B, h, w, 128] -> [B, h, w, 576] convex-upsample weights."""
         return nchw_to_nhwc(0.25 * self.mask(nhwc_to_nchw(net)))

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version.  A wrapper runs the plain version for CPU tensors and launches
-its kernel for CUDA tensors (or raises); it counts its launches in
-`<wrapper>.launches`.  Every entry refuses a gradient on both devices: a
+its kernel for CUDA tensors (or raises); it counts its launches as
+`kernels.<wrapper>.launches` in the tracing registry
+(runtime/profiling.py).  Every entry refuses a gradient on both devices: a
 backward through its result raises (`_nograd.refuses_gradient`), as the
 TPU kernels cannot be differentiated either.
 

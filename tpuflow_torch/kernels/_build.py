@@ -27,6 +27,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
+from ..runtime import profiling
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
@@ -80,6 +82,7 @@ def build(names: Iterable[str] = SOURCES, checked: bool = False) -> Dict[str, st
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         jobs.append((name, proc, tmp, so))
+        profiling.count("kernels.builds")
     logs: Dict[str, str] = {}
     errors = []
     for name, proc, tmp, so in jobs:
@@ -115,14 +118,11 @@ def library(name: str, checked: Optional[bool] = None) -> ctypes.CDLL:
         return lib
 
 
-_count_lock = threading.Lock()
-
-
 def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`, under a lock: the strips of a
-    spatially sharded call launch from threads of their own."""
-    with _count_lock:
-        wrapper.launches += 1
+    """Count one launch of `wrapper` as `kernels.<its name>.launches` in the
+    tracing registry (runtime/profiling.py), which counts under a lock: the
+    strips of a spatially sharded call launch from threads of their own."""
+    profiling.count(f"kernels.{wrapper.__name__}.launches")
 
 
 def check_launch(rc: int, kernel: str) -> None:

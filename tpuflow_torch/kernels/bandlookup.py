@@ -49,8 +49,8 @@ def band_patch_levels(vols: Sequence[torch.Tensor], rrs: Sequence[torch.Tensor],
     """Every level of one lookup: vols [B, lh, Nq, lw] (bf16 or f32) + per
     level clamped rr, cc [B, Nq, side] int32 -> per level a patch
     [B, Nq, side, side] of exact volume entries.  CPU tensors: the plain
-    version; CUDA tensors: the kernel, one launch for all levels (counted in
-    band_patch_level.launches)."""
+    version; CUDA tensors: the kernel, one launch for all levels (counted as
+    kernels.band_patch_level.launches)."""
     check_volume_levels(vols, rrs, ccs, "band")
     dev = vols[0].device
     if dev.type == "cpu":
@@ -67,6 +67,3 @@ def band_patch_level(vol: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) -> t
     [B, Nq, side] int32 -> patch [B, Nq, side, side] of exact volume
     entries, through band_patch_levels."""
     return band_patch_levels([vol], [rr], [cc])[0]
-
-
-band_patch_level.launches = 0

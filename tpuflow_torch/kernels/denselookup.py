@@ -158,9 +158,6 @@ def dense_lookup(
     return out
 
 
-dense_lookup.launches = 0
-
-
 def check_patch_indices(rr: torch.Tensor, cc: torch.Tensor, device: torch.device) -> None:
     """rr, cc: [B, Nq, side] int32, contiguous, on `device` (shared by the
     four patch wrappers)."""
@@ -281,8 +278,8 @@ def dense_patch_levels(volumes: Sequence[torch.Tensor], rrs: Sequence[torch.Tens
     """Every level of one lookup: volumes [B*Nq, lh, lw] (bf16 or f32) +
     per level clamped rr, cc [B, Nq, side] int32 -> per level a patch
     [B, Nq, side, side] of exact volume entries.  CPU tensors: the plain
-    version; CUDA tensors: the kernel, one launch for all levels (counted in
-    dense_patch_level.launches)."""
+    version; CUDA tensors: the kernel, one launch for all levels (counted as
+    kernels.dense_patch_level.launches)."""
     check_volume_levels(volumes, rrs, ccs, "flat")
     dev = volumes[0].device
     if dev.type == "cpu":
@@ -299,6 +296,3 @@ def dense_patch_level(volume: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor) 
     [B, Nq, side] int32 -> patch [B, Nq, side, side] of exact volume
     entries, through dense_patch_levels."""
     return dense_patch_levels([volume], [rr], [cc])[0]
-
-
-dense_patch_level.launches = 0

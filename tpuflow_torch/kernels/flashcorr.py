@@ -36,6 +36,3 @@ def flash_patch_level(
     queries form a grid of width grid_w (must divide Nq; None: one row).
     CPU tensors: the plain version; CUDA tensors: the kernel."""
     return corr_patch(flash_patch_level, flash_patch_level_plain, f1, f2l, rr, cc, grid_w)
-
-
-flash_patch_level.launches = 0

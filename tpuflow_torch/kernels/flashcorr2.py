@@ -170,6 +170,3 @@ def flash2_patch_level(
     queries form a grid of width grid_w (must divide Nq; None: one row).
     CPU tensors: the plain version; CUDA tensors: the kernel."""
     return corr_patch(flash2_patch_level, flash2_patch_level_plain, f1, f2l, rr, cc, grid_w)
-
-
-flash2_patch_level.launches = 0

@@ -63,6 +63,7 @@ from .convert import VIDEOFLOW_IGNORE, load_torch_state_dict
 from .checkpoint import is_native_checkpoint, load_params
 from .convert_memflow import MEMFLOW_IGNORE
 from .device import resolve_device
+from .profiling import count, span
 from .sharding import Mesh, split_batch
 from .tiles import (
     calculate_tile_grid,
@@ -161,6 +162,7 @@ class _Fetch:
     def __init__(self, x: torch.Tensor):
         self.event = None
         if x.device.type == "cuda":
+            count("engine.fetch_bytes", x.numel() * x.element_size())
             # On x's card: its stream holds the copy and the event (a mesh's
             # replicas run on cards other than the current one).
             with torch.cuda.device(x.device):
@@ -171,10 +173,17 @@ class _Fetch:
         else:
             self.host = x
 
+    @span("tpuflow.engine.fetch_wait")
     def result(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+    @span("tpuflow.engine.deliver")
+    def deliver(self, out: np.ndarray) -> None:
+        """Wait for the copy and store it in `out` (host memory the caller
+        returns)."""
+        out[...] = self.result()
 
 
 def _gather(fetches: List[_Fetch]) -> np.ndarray:
@@ -192,6 +201,21 @@ class _FetchAll:
 
     def result(self) -> np.ndarray:
         return _gather(self.fetches)
+
+
+@span("tpuflow.engine.upload.copy")
+def _copy_frames(frames: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Frames as they are, made contiguous on the host and copied to `device`."""
+    frames = np.ascontiguousarray(frames)
+    count("engine.upload_bytes", frames.nbytes)
+    return torch.from_numpy(frames).to(device)
+
+
+@span("tpuflow.engine.upload.prep")
+def _prep_frames(x: torch.Tensor) -> torch.Tensor:
+    """Uploaded frames -> f32 in [0, 1], edge-padded to a multiple of 8."""
+    x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    return pad_frames_edge(x, pad_dims(x.shape[1], x.shape[2], 8))
 
 
 class FlowEngine:
@@ -349,13 +373,12 @@ class FlowEngine:
             rows = np.concatenate([rows, np.repeat(rows[-1:], pad, 0)])
         return rows, pad
 
+    @span("tpuflow.engine.upload")
     def _upload(self, frames: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
         """Frames [M, h, w, 3] (uint8 0..255 or float 0..1) -> f32 [M, ph,
         pw, 3] in [0, 1] on `device` (default the engine's), edge-padded to a
         multiple of 8."""
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(device or self.device)
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        return pad_frames_edge(x, pad_dims(x.shape[1], x.shape[2], 8))
+        return _prep_frames(_copy_frames(frames, device or self.device))
 
     def _window_flows_all(self, windows: np.ndarray) -> np.ndarray:
         """Untiled forward: windows [B, T, h, w, 3] (uint8 0..255 or float
@@ -394,10 +417,12 @@ class FlowEngine:
                 pair = self._upload(arr[trailing_window_indices(n, idx, max(2, t))[-2:]])
                 flow, _, _ = self.model(pair[None], self.model.empty_memory(1, pair.shape[1], pair.shape[2]))
                 out.append(flow[0, pt : pt + h, pl : pl + w].cpu().numpy())
+                count("engine.frames")
             return np.stack(out)
         wins = np.stack([centered_window_indices(len(arr), i, t) for i in frame_indices])
         windows, pad = self._pad_to_axis(arr[wins])
         flows = self._window_flows_all(windows)
+        count("engine.frames", len(frame_indices))
         return flows[: len(flows) - pad, flows.shape[1] // 2]
 
     @torch.inference_mode()
@@ -429,6 +454,7 @@ class FlowEngine:
                 for k in range(stride):
                     if 0 <= a + 1 + k < n:
                         flows[a + 1 + k] = out[j, k]
+        count("engine.frames", n)
         return flows
 
     def _tile_features(self, frame: np.ndarray, tiles_info, idxs, overlap: int, slot=None):
@@ -502,6 +528,7 @@ class FlowEngine:
                 group_flows[c0 : c0 + len(chunk)] = _gather(fetches)[: len(chunk)]
             for j, ti in enumerate(idxs):
                 tile_flows[ti] = group_flows[j]
+        count("engine.frames")
         return paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
 
     def _clamp_window_batch(self, wb: int, t: int, groups) -> int:
@@ -614,6 +641,7 @@ class FlowEngine:
                         tile_flows[k][ti] = host[k * len(idxs) + j]
             for k, i in enumerate(outs):
                 flows_out[i] = paste_tile_flows(tile_flows[k], tiles_info, w, h, tile_size, overlap)
+                count("engine.frames")
                 if progress_cb is not None:
                     progress_cb(i, flows_out[i])
 
@@ -678,10 +706,11 @@ class FlowEngine:
             low = low.clamp(-CARRY_CLAMP, CARRY_CLAMP)
             fetched = _Fetch(flow[0, pt : pt + h, pl : pl + w])
             if pending is not None:
-                flows[pending[0]] = pending[1].result()
+                pending[1].deliver(flows[pending[0]])
             pending, prev = (i, fetched), cur
+            count("engine.frames")
         if pending is not None:
-            flows[pending[0]] = pending[1].result()
+            pending[1].deliver(flows[pending[0]])
         self.memory = memory
         return flows
 
@@ -708,6 +737,7 @@ class FlowEngine:
                 for j, ti in enumerate(idxs):
                     tile_flows[ti] = host[j]
             flows_out[i] = paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
+            count("engine.frames")
             if progress_cb is not None:
                 progress_cb(i, flows_out[i])
 

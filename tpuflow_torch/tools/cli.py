@@ -2,7 +2,9 @@
 flow_processor.py argparse surface, flow_processor.py:1271-1332, with every
 flag, default and choice) plus the JAX package's extensions under
 `--allow-random-init`, `--batch-frames`, `--tile-overlap`,
-`--data-parallel`, `--encoder`, `--stride-mode` and the multi-host flags.
+`--data-parallel`, `--encoder`, `--stride-mode` and the multi-host flags,
+and the port's own `--trace-dir` (the flow pass traced: its spans, counters
+and kernels, runtime/profiling.trace_to).
 
     python3 -m tpuflow_torch.tools.cli --input clip.mp4 --allow-random-init
 
@@ -87,6 +89,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="[ext] total processes in the multi-host run")
     p.add_argument("--process-id", type=int, default=None,
                    help="[ext] this process's id (0..num-processes-1)")
+    p.add_argument(
+        "--trace-dir", type=str, default=None,
+        help="[ext] run the flow pass with the program's spans on, under torch.profiler: "
+             "writes a Chrome trace and spans.json (per span calls, host and device seconds, "
+             "counters, per-frame figures) to this directory and prints the span table",
+    )
     return p
 
 
@@ -184,7 +192,7 @@ def main(argv=None) -> int:
         init_distributed(args.coordinator, args.num_processes, args.process_id,
                          device="cpu" if config.device == "cpu" else "cuda")
         try:
-            cache_dir = FlowPipeline(config).compute_flows_distributed()
+            cache_dir = FlowPipeline(config, trace_dir=args.trace_dir).compute_flows_distributed()
         finally:
             dist.destroy_process_group()
         print(f"Flow cache complete: {cache_dir}")
@@ -192,7 +200,7 @@ def main(argv=None) -> int:
 
     from .pipeline import FlowPipeline
 
-    pipeline = FlowPipeline(config)
+    pipeline = FlowPipeline(config, trace_dir=args.trace_dir)
     pipeline.process_video()
     return 0
 

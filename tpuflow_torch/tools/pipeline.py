@@ -48,6 +48,7 @@ from ..pipeline.filenames import generate_cache_directory, generate_output_filep
 from ..pipeline.video_io import FrameExtractor
 from ..runtime.device import DeviceManager
 from ..runtime.distributed import gather_host_results, host_window_range, rank, world_size
+from ..runtime import profiling
 from ..runtime.engine import FlowEngine
 from ..runtime.sharding import make_mesh
 
@@ -160,8 +161,13 @@ class RenderStep:
 class FlowPipeline:
     """End-to-end orchestrator (facade parity: flow_processor.py:42-120)."""
 
-    def __init__(self, config: PipelineConfig, engine: Optional[FlowEngine] = None):
+    def __init__(self, config: PipelineConfig, engine: Optional[FlowEngine] = None,
+                 trace_dir: Optional[str] = None):
+        """`trace_dir`: run the flow pass with the spans on, under the
+        profiler, and write its trace and spans.json there
+        (runtime/profiling.trace_to; the CLI's --trace-dir)."""
         self.config = config
+        self.trace_dir = trace_dir
         self.device = DeviceManager.get_device(config.device)
         mesh = None
         if engine is None and config.data_parallel > 1:
@@ -259,45 +265,47 @@ class FlowPipeline:
             except ImportError:
                 pass
 
-        if self.config.model == "memflow":
-            # One stream over the clip with the memory carried.
-            all_flows = self.engine.stream_flows(frames)
-            for i in range(n):
-                flows[i] = all_flows[i]
-                save(flows[i], i)
-                if iterator:
-                    iterator.update(1)
-        elif self.config.stride_mode == "interior" and not self.config.tile:
-            all_flows = self.engine.compute_flows_strided(
-                frames, window_batch=max(1, self.config.batch_frames)
-            )
-            for i in range(n):
-                flows[i] = all_flows[i]
-                save(flows[i], i)
-                if iterator:
-                    iterator.update(1)
-        elif self.config.tile:
-            # Stride-1 tile mode: each frame's encoder features are
-            # computed once and reused by the windows that share it.
-            def _on_frame(i, flow):
-                flows[i] = flow
-                save(flow, i)
-                if iterator:
-                    iterator.update(1)
-
-            self.engine.compute_flows_tiled_stride1(
-                frames, overlap=self.config.tile_overlap, progress_cb=_on_frame
-            )
-        else:
-            bs = max(1, self.config.batch_frames)
-            for i0 in range(0, n, bs):
-                idxs = list(range(i0, min(n, i0 + bs)))
-                batch = self.engine.compute_flow_batch(frames, idxs)
-                for j, i in enumerate(idxs):
-                    flows[i] = batch[j]
+        name = "spans.json" if world_size() == 1 else f"spans.rank{rank()}.json"
+        with profiling.trace_to(self.trace_dir, name):
+            if self.config.model == "memflow":
+                # One stream over the clip with the memory carried.
+                all_flows = self.engine.stream_flows(frames)
+                for i in range(n):
+                    flows[i] = all_flows[i]
                     save(flows[i], i)
-                if iterator:
-                    iterator.update(len(idxs))
+                    if iterator:
+                        iterator.update(1)
+            elif self.config.stride_mode == "interior" and not self.config.tile:
+                all_flows = self.engine.compute_flows_strided(
+                    frames, window_batch=max(1, self.config.batch_frames)
+                )
+                for i in range(n):
+                    flows[i] = all_flows[i]
+                    save(flows[i], i)
+                    if iterator:
+                        iterator.update(1)
+            elif self.config.tile:
+                # Stride-1 tile mode: each frame's encoder features are
+                # computed once and reused by the windows that share it.
+                def _on_frame(i, flow):
+                    flows[i] = flow
+                    save(flow, i)
+                    if iterator:
+                        iterator.update(1)
+
+                self.engine.compute_flows_tiled_stride1(
+                    frames, overlap=self.config.tile_overlap, progress_cb=_on_frame
+                )
+            else:
+                bs = max(1, self.config.batch_frames)
+                for i0 in range(0, n, bs):
+                    idxs = list(range(i0, min(n, i0 + bs)))
+                    batch = self.engine.compute_flow_batch(frames, idxs)
+                    for j, i in enumerate(idxs):
+                        flows[i] = batch[j]
+                        save(flows[i], i)
+                    if iterator:
+                        iterator.update(len(idxs))
 
         if io_pool is not None:
             for fut in io_futures:
