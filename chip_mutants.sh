@@ -46,8 +46,9 @@
 #   gradavg    tpuflow_torch/runtime/sharding.py: shard_train_step averages
 #              the replicas' gradients with equal weights, not by shard
 #              size                       -> the train phase fails
-#   halo       tpuflow_torch/core/strips.py: a strip's convolutions read
-#              zeros in place of the neighbouring strips' rows
+#   halo       tpuflow_torch/core/strips.py: a strip's convolutions and
+#              depthwise stages read zeros in place of the neighbouring
+#              strips' rows
 #                                         -> the spatial phase fails
 #   k1row0     dense_lookup.cu: K1 places the queries at their grid row,
 #              ignoring row0               -> K1's check and the spatial
@@ -169,7 +170,7 @@ for copy in $copies; do
         gradavg)   phases=train; edited=tpuflow_torch/runtime/sharding.py
                    sed -i 's|share = w.shape\[0\] / n|share = 1 / len(self.devices)|' $edited ;;
         halo)      phases=spatial; edited=tpuflow_torch/core/strips.py
-                   sed -i 's/rows = strip.fetch(x, 2, start - top, stop - s - top + k)/rows = F.pad(x, (0, 0, top, k - s - top))/' $edited ;;
+                   sed -i 's/rows = strip.fetch(x, 2, start - top, stop - s - top + k)/rows = F.pad(x, (0, 0, top, k - s - top))/; s/return strip.fetch(x, 1, lo, hi), (lo - (start - h), stop + h - hi)/return F.pad(x, (0, 0, 0, 0, start - lo, hi - stop)), (lo - (start - h), stop + h - hi)/' $edited ;;
         k1row0)    phases=k1,spatial; edited=tpuflow_torch/csrc/dense_lookup.cu
                    sed -i 's/const int y = gy + row0;/const int y = gy;/' $edited ;;
         k2keys)    phases=k2,spatial; edited=tpuflow_torch/csrc/flash_attention.cu

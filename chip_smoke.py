@@ -30,7 +30,11 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    (a strip of the tile's grid, a ragged last strip, and ragged strips
    across every plane edge), K2 with query and key counts that differ (one
    strip of the untiled window, [3, 8160, 128] queries against [3, 32400,
-   128] keys, timed; ragged pairs).
+   128] keys, timed; ragged pairs).  K7 (PCBlock4's depthwise stages, no
+   TPU kernel) at MemFlow's 1080p stages and two of MOF's tile stages in
+   bf16 with the pointwise entry folded in, timed beside its bound (bytes,
+   or operations at the tensor cores' rate), its plain twin and the
+   module's former cuDNN composition, and on ragged shapes in bf16 and f32.
 4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
    synthetic 1920x1080 frames at the full configuration (Twins-SVT, 4
    levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
@@ -62,7 +66,7 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    encoders' time per frame against Twins's and their profile, then every
    entry point on a small clip.
 12. MemFlow (model 'memflow', rope on, a memory of 8 slots): stream_flows on
-   ten 1920x1080 frames (K3 48 and K2 12 launches per frame, K1 none; every
+   ten 1920x1080 frames (K3 48, K2 12 and K7 72 launches per frame, K1 none; every
    slot valid after the clip), one frame's encoders, memory reader and
    refinement timed and the refinement profiled, the memory reader against
    a plain readout of the valid slots, every entry point against
@@ -130,11 +134,12 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
 19. train: shard_train_step over two replicas on the card, the product
    configuration at 368x496 in f32 (dense_lookup='xla', gma_impl='xla',
    AdamW), three steps under torch's default TF32 flags (ms per step,
-   peak memory); K1 and K2 refuse a backward; one narrow step card against
+   peak memory; K7 forward, its plain twin backward, 6 launches a step and
+   replica); K1 and K2 refuse a backward; one narrow step card against
    CPU with TF32 off.
 20. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
-   with its bounds guards (kernels/_build.py, checked=True), each of the six
+   with its bounds guards (kernels/_build.py, checked=True), each of the seven
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
    poisons the child's CUDA context and its non-zero exit fails the run.
 
@@ -971,6 +976,132 @@ def check_volume_patch(dev, layout: str) -> dict:
     }
 
 
+# PCBlock4's depthwise stages, each with its k = 1 entry folded in: (stage,
+# B, h, w, channels, k, launches a MemFlow 1080p iteration).  MemFlow's at
+# 1080p (a 135 x 240 grid, B = 1); MOF's convc1 (648 channels) and conv (400)
+# at the tile shape (2 tiles x 3 interior frames of a 135 x 120 grid), which
+# no MemFlow frame runs.
+DEPTHWISE_STAGES = (("convf2+flow_head", 1, 135, 240, 128, 15, 2), ("convc2", 1, 135, 240, 256, 15, 1),
+                    ("convc1", 1, 135, 240, 324, 15, 1), ("conv", 1, 135, 240, 384, 15, 1),
+                    ("gru", 1, 135, 240, 512, 7, 1), ("mof convc1", 6, 135, 120, 648, 15, 0),
+                    ("mof conv", 6, 135, 120, 400, 15, 0))
+# Ragged shapes (b, h, w, C, k, row pads or None, x's offset in elements into
+# its buffer): a frame under the kernel, channel tails of 4 (8-byte loads)
+# and odd counts (element loads), unaligned starts, a strip's pads at the
+# frame's top, bottom and inside, each k the kernel takes.
+DEPTHWISE_RAGGED = ((1, 5, 9, 12, 15, None, 0), (3, 19, 37, 324, 15, None, 0), (2, 17, 33, 3, 7, None, 0),
+                    (2, 17, 33, 20, 7, (0, 1), 1), (1, 30, 40, 12, 15, (7, 0), 0),
+                    (1, 30, 40, 12, 15, (0, 7), 0), (1, 30, 40, 24, 15, (3, 5), 4),
+                    (2, 16, 16, 64, 1, None, 0), (1, 21, 50, 24, 7, (3, 0), 0), (1, 21, 50, 24, 1, None, 3),
+                    (1, 21, 50, 24, 15, (2, 5), 0), (3, 9, 70, 40, 15, (7, 7), 2))
+
+
+def depthwise_draw(g, dev, b, h, w, c, k, dtype, offset: int = 0):
+    """NHWC x (starting `offset` elements into its buffer), a depthwise
+    weight at a conv's init scale (1 / k), a bias, and a pointwise entry's
+    weight and bias, all of `dtype`."""
+    buf = torch.randn(b * h * w * c + offset, generator=g, device=dev).to(dtype)
+    x = buf[offset:].view(b, h, w, c)
+    wt = (torch.randn((c, 1, k, k), generator=g, device=dev) / k).to(dtype)
+    bias = (torch.randn(c, generator=g, device=dev) * 0.1).to(dtype)
+    pw = (torch.randn((c, 1, 1, 1), generator=g, device=dev) * 0.5).to(dtype)
+    pb = (torch.randn(c, generator=g, device=dev) * 0.1).to(dtype)
+    return x, wt, bias, pw, pb
+
+
+def depthwise_compare(x, wt, bias, pw, pb, pads=None) -> dict:
+    """K7 with the pointwise entry folded in equals the k = 1 launch followed
+    by the unfolded one, bit for bit (the prologue repeats the k = 1
+    stage's roundings); each of those two against the plain twin on the
+    card within one rounding: both sum the same products in f32 in other
+    orders and round once, so they part by at most one step of x's dtype
+    (bf16: 2^-7 relative) beyond the sums' own difference (some 1e-6)."""
+    from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu, depthwise_residual_gelu_plain
+
+    fused = depthwise_residual_gelu(x, wt, bias, pw, pb, pads=pads)
+    x1 = depthwise_residual_gelu(x, pw, pb)
+    unfused = depthwise_residual_gelu(x1, wt, bias, pads=pads)
+    torch.cuda.synchronize()
+    shape = f"{tuple(x.shape)} k {wt.shape[-1]} pads {pads} {x.dtype}"
+    if not torch.equal(fused, unfused):
+        diff = (fused.float() - unfused.float()).abs().max().item()
+        raise AssertionError(f"depthwise {shape}: the fold differs from its two launches by {diff}")
+    rtol = 2 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+    errs = {}
+    for what, got, ref in (("k1", x1, depthwise_residual_gelu_plain(x, pw, pb)),
+                           ("stage", unfused, depthwise_residual_gelu_plain(x1, wt, bias, pads=pads))):
+        if got.shape != ref.shape:
+            raise AssertionError(f"depthwise {shape} {what}: shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
+        err = (got.float() - ref.float()).abs()
+        over = err > rtol * ref.float().abs() + 1e-5
+        if over.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"depthwise {shape} {what}: {int(over.sum())} entries off the plain twin, "
+                                 f"largest {err.max().item():.3e}")
+        errs[what] = err.max().item()
+    return errs
+
+
+def check_depthwise_ragged(g, dev) -> None:
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, w, c, k, pads, offset in DEPTHWISE_RAGGED:
+            depthwise_compare(*depthwise_draw(g, dev, b, h, w, c, k, dtype, offset), pads)
+    log(f"depthwise ragged: {2 * len(DEPTHWISE_RAGGED)} shapes agree (bf16 and f32)")
+
+
+def check_depthwise(dev) -> dict:
+    """K7 on the ragged shapes, then at DEPTHWISE_STAGES in bf16 with the
+    pointwise entry folded in: against its plain twin, with its time, its
+    bound, the plain twin's time and library_ms, the module's former
+    composition on the same NHWC tensors (cuDNN's grouped convolutions, the
+    adds and GELUs): a yardstick that the port never calls.  The bound is
+    the larger of the bytes (x read and y written once) and the useful
+    operations at the tensor cores' bf16 rate with f32 sums (wgmma, as a
+    banded Toeplitz product could run them); `fma_ms` is the operations on
+    the CUDA cores' f32 FMAs, the bound of K7's present design."""
+    import torch.nn.functional as F
+
+    from tpuflow_torch.core.encoders import gelu
+    from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu, depthwise_residual_gelu_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    check_depthwise_ragged(g, dev)
+    stages, frame = [], {"ms": 0.0, "bound_ms": 0.0, "fma_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for name, b, h, w, c, k, per_iter in DEPTHWISE_STAGES:
+        x, wt, bias, pw, pb = depthwise_draw(g, dev, b, h, w, c, k, torch.bfloat16)
+        errs = depthwise_compare(x, wt, bias, pw, pb)
+        xc = x.permute(0, 3, 1, 2)
+
+        def library():
+            y = gelu(xc + F.conv2d(xc, pw, pb, groups=c))
+            return gelu(y + F.conv2d(y, wt, bias, padding=k // 2, groups=c))
+
+        ms = time_ms(lambda: depthwise_residual_gelu(x, wt, bias, pw, pb), reps=20, queued=True)
+        plain_ms = time_ms(lambda: depthwise_residual_gelu_plain(x, wt, bias, pw, pb), reps=3)
+        library_ms = time_ms(library, reps=5)
+        n = b * h * w * c
+        flops = 2 * n * (k * k + 1)                                # k^2 taps and the prologue's FMA
+        ops_ms = flops / BF16_FLOP_PER_S * 1e3
+        bytes_ms = (2 * n * 2 + 2 * c * (k * k + 3)) / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        row = {"stage": name, "shape": [b, h, w, c], "k": k, "ms": ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "ops_bound_ms": ops_ms,
+               "bytes_bound_ms": bytes_ms, "fma_ms": flops / F32_FLOP_PER_S * 1e3,
+               "roofline_pct": 100 * bound_ms / ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "max_abs_err": errs}
+        log(f"depthwise {name} [{b}, {h}, {w}, {c}] k {k}: {ms:.4f} ms (bound {bound_ms:.4f}, "
+            f"{row['roofline_pct']:.1f} %; f32 FMAs {row['fma_ms']:.4f}), plain {plain_ms:.3f} ms, "
+            f"library {library_ms:.3f} ms, errors {errs}")
+        stages.append(row)
+        for key in frame:
+            frame[key] += 12 * per_iter * row[key]
+        del x, wt, bias, pw, pb, xc
+    frame["roofline_pct"] = 100 * frame["bound_ms"] / frame["ms"]
+    log(f"depthwise per MemFlow 1080p frame (12 iterations): {json.dumps(frame)}")
+    return {"name": "depthwise_residual_gelu", "route": "cuda", "source": "tpuflow_torch/csrc/depthwise.cu",
+            "replaces": "no TPU kernel (the JAX package left PCBlock4's depthwise convs to XLA)",
+            "stages": stages, "per_memflow_frame": frame}
+
+
 def check_volume_patch_far(dev) -> dict:
     """K4 and K6 on patches that read entries beyond element offset 2^31:
     one bf16 buffer of 9000 x 500 x 500 entries (4.5 GB) read as a flat
@@ -1130,9 +1261,9 @@ def phase_end_to_end(engine, kernels) -> dict:
     if flows.shape != (MAIN_FRAMES, MAIN_H, MAIN_W, 2) or not np.isfinite(flows).all():
         raise AssertionError(f"bad flows: shape {flows.shape}, finite {np.isfinite(flows).all()}")
     windows = MAIN_FRAMES                        # one window (both tiles batched) per frame
-    expected = dict.fromkeys(kernels, 0)
-    expected["dense_lookup"] = windows * 2 * cfg.decoder_depth     # one launch per direction, all levels
-    expected["flash_attention_fwd"] = windows * cfg.decoder_depth
+    expected = expected_launches(kernels, steps=windows * cfg.decoder_depth,
+                                 dense_lookup=windows * 2 * cfg.decoder_depth,   # one per direction, all levels
+                                 flash_attention_fwd=windows * cfg.decoder_depth)
     log(f"end to end: {MAIN_FRAMES} frames of {MAIN_W}x{MAIN_H} in {wall:.3f} s = "
         f"{MAIN_FRAMES / wall:.4f} frames/s, peak {peak:.2f} GiB, launches {launches}, "
         f"|flow| mean {np.abs(flows).mean():.3f} max {np.abs(flows).max():.3f}")
@@ -1181,8 +1312,7 @@ def phase_untiled(engine, kernels) -> dict:
         if flow.shape != (MAIN_H, MAIN_W, 2) or not np.isfinite(flow).all():
             raise AssertionError(f"untiled {impl}: bad flow, shape {flow.shape}")
         lookups = 2 * cfg.decoder_depth
-        expected = dict.fromkeys(kernels, 0)
-        expected["flash_attention_fwd"] = cfg.decoder_depth
+        expected = expected_launches(kernels, steps=cfg.decoder_depth, flash_attention_fwd=cfg.decoder_depth)
         if impl == "auto":
             expected["flash2_patch_level"] = lookups * cfg.corr_levels
         else:
@@ -1291,9 +1421,9 @@ def phase_strided(engine, kernels) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     if flows.shape != (n, MAIN_H, MAIN_W, 2) or not np.isfinite(flows).all():
         raise AssertionError(f"strided: bad flows, shape {flows.shape}")
-    expected = dict.fromkeys(kernels, 0)
-    expected["flash_attention_fwd"] = batches * cfg.decoder_depth
-    expected["flash2_patch_level"] = batches * 2 * cfg.decoder_depth * cfg.corr_levels
+    expected = expected_launches(kernels, steps=batches * cfg.decoder_depth,
+                                 flash_attention_fwd=batches * cfg.decoder_depth,
+                                 flash2_patch_level=batches * 2 * cfg.decoder_depth * cfg.corr_levels)
     if launches != expected:
         raise AssertionError(f"strided: kernel launches {launches}, expected {expected}")
     log(f"strided: {n} untiled frames of {MAIN_W}x{MAIN_H}, window_batch=2, in {wall:.3f} s = {n / wall:.4f} "
@@ -1403,9 +1533,8 @@ def phase_formulations(engine, kernels) -> dict:
                 reset_launches(kernels)
                 (up_fwd, _), wall = timed_call(run)
                 launches = read_launches(kernels)
-                want = dict.fromkeys(kernels, 0)
-                want["flash_attention_fwd"] = FORMULATION_DEPTH
-                want.update(expected[name])
+                want = expected_launches(kernels, steps=FORMULATION_DEPTH, flash_attention_fwd=FORMULATION_DEPTH,
+                                         **expected[name])
                 if launches != want:
                     raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
                 walls = [wall] + [timed_call(run)[1] for _ in range(2)]
@@ -1448,8 +1577,17 @@ UHD_H, UHD_W = 2160, 3840
 SINGLE_TILE_HW = (480, 640)      # a clip that fits one tile
 
 
-def expected_launches(kernels, **counts) -> dict:
+# PCBlock4s in one step of either SK update block (convc1, convc2, convf2,
+# conv, gru, flow_head): K7 launches once for each, the k = 1 entries folded in.
+PCBLOCKS_PER_STEP = 6
+
+
+def expected_launches(kernels, steps: int, **counts) -> dict:
+    """Each kernel's launches: K7 once per PCBlock4 of each of `steps`
+    update-block steps (one step serves a batch of windows, tiles or a
+    strip), `counts` for the others named, none for the rest."""
     want = dict.fromkeys(kernels, 0)
+    want["depthwise_residual_gelu"] = PCBLOCKS_PER_STEP * steps
     want.update(counts)
     return want
 
@@ -1504,7 +1642,8 @@ def phase_bof(kernels) -> dict:
     frames = synthetic_clip(BOF_FRAMES, MAIN_H, MAIN_W, SEED + 12)
     engine.compute_flows_tiled_stride1(frames[:2])                 # warm-up
     _, wall, peak, launches = tiled_run(engine, kernels, frames)
-    want = expected_launches(kernels, dense_lookup=BOF_FRAMES * 2 * cfg.decoder_depth,
+    want = expected_launches(kernels, steps=BOF_FRAMES * cfg.decoder_depth,
+                             dense_lookup=BOF_FRAMES * 2 * cfg.decoder_depth,
                              flash_attention_fwd=BOF_FRAMES * cfg.decoder_depth)
     if launches != want:
         raise AssertionError(f"bof tiled: kernel launches {launches}, expected {want}")
@@ -1524,7 +1663,8 @@ def phase_bof(kernels) -> dict:
     for name, f in (("forward", fwd), ("backward", bwd)):
         if tuple(f.shape) != (1, 1, MAIN_H, MAIN_W, 2) or not torch.isfinite(f).all():
             raise AssertionError(f"bof untiled: bad {name} flow, shape {tuple(f.shape)}")
-    want = expected_launches(kernels, flash2_patch_level=2 * cfg.decoder_depth * cfg.corr_levels,
+    want = expected_launches(kernels, steps=cfg.decoder_depth,
+                             flash2_patch_level=2 * cfg.decoder_depth * cfg.corr_levels,
                              flash_attention_fwd=cfg.decoder_depth)
     if launches != want:
         raise AssertionError(f"bof untiled: kernel launches {launches}, expected {want}")
@@ -1566,7 +1706,8 @@ def phase_cnn(kernels, twins_feature_ms: float) -> dict:
         log(f"  {ms:8.2f} ms {100 * ms / max(busy, 1e-9):5.1f} % {count:4d}x  {key[:100]}")
     engine.compute_flows_tiled_stride1(frames[:1])                 # warm-up
     _, wall, peak, launches = tiled_run(engine, kernels, frames)
-    want = expected_launches(kernels, dense_lookup=CNN_FRAMES * 2 * cfg.decoder_depth,
+    want = expected_launches(kernels, steps=CNN_FRAMES * cfg.decoder_depth,
+                             dense_lookup=CNN_FRAMES * 2 * cfg.decoder_depth,
                              flash_attention_fwd=CNN_FRAMES * cfg.decoder_depth)
     if launches != want:
         raise AssertionError(f"cnn tiled: kernel launches {launches}, expected {want}")
@@ -1602,7 +1743,8 @@ def phase_window_batch(engine, kernels) -> dict:
         eff = engine._clamp_window_batch(wb, t, groups)
         flows[wb], wall, peak, launches = tiled_run(engine, kernels, frames, window_batch=wb)
         batches = math.ceil(BATCH_FRAMES / eff)
-        want = expected_launches(kernels, dense_lookup=batches * 2 * depth, flash_attention_fwd=batches * depth)
+        want = expected_launches(kernels, steps=batches * depth, dense_lookup=batches * 2 * depth,
+                                 flash_attention_fwd=batches * depth)
         if launches != want:
             raise AssertionError(f"window_batch={wb}: kernel launches {launches}, expected {want}")
         log(f"window_batch={wb} (runs as {eff}; card free {free / 2**30:.2f} of {total / 2**30:.2f} GiB before): "
@@ -1634,7 +1776,7 @@ def phase_pairs(engine, kernels, frames, trio_flows, trio_wall: float) -> dict:
         flows, wall, peak, launches = tiled_run(engine, kernels, frames)
     finally:
         del os.environ["TPUFLOW_STRIDE1"]
-    want = expected_launches(kernels, dense_lookup=n * 2 * (cfg.sequence_length - 2) * depth,
+    want = expected_launches(kernels, steps=n * depth, dense_lookup=n * 2 * (cfg.sequence_length - 2) * depth,
                              flash_attention_fwd=n * depth)
     if launches != want:
         raise AssertionError(f"pairs: kernel launches {launches}, expected {want}")
@@ -1670,7 +1812,8 @@ def phase_uhd(engine, kernels) -> dict:
         if flow.shape != (UHD_H, UHD_W, 2) or not np.isfinite(flow).all():
             raise AssertionError(f"4K tile_batch={tb}: bad flow, shape {flow.shape}")
         chunks = math.ceil(6 / tb)
-        want = expected_launches(kernels, dense_lookup=chunks * 2 * depth, flash_attention_fwd=chunks * depth)
+        want = expected_launches(kernels, steps=chunks * depth, dense_lookup=chunks * 2 * depth,
+                                 flash_attention_fwd=chunks * depth)
         if launches != want:
             raise AssertionError(f"4K tile_batch={tb}: kernel launches {launches}, expected {want}")
         log(f"4K {UHD_W}x{UHD_H} frame, tile_batch={tb}: {wall:.3f} s, peak {peak:.2f} GiB, launches {launches}")
@@ -1795,7 +1938,8 @@ def phase_memflow(kernels) -> dict:
     slots, key 64 and value 128 channels, bf16, seeded random weights):
     - stream_flows on MEMFLOW_FRAMES 1920x1080 frames after a warm-up call:
       the 135x240 grid is above both thresholds, so each frame launches K3
-      48 times (12 lookups x 4 levels) and K2 12 times, K1 never; finite
+      48 times (12 lookups x 4 levels), K2 12 times and K7 72 times (6
+      PCBlock4s a step), K1 never; finite
       flows; after a clip of n frames the first min(n, 8) slots are valid
       and ptr = n;
     - one frame on the full memory in stages (encoders, memory reader,
@@ -1823,7 +1967,8 @@ def phase_memflow(kernels) -> dict:
     frames = synthetic_clip(n, MAIN_H, MAIN_W, SEED + 17)
     engine.stream_flows(frames[:2])                                # warm-up
     flows, wall, peak, launches = memflow_stream(engine, kernels, frames)
-    want = expected_launches(kernels, flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
+    want = expected_launches(kernels, steps=n * cfg.decoder_depth,
+                             flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
                              flash_attention_fwd=n * cfg.decoder_depth)
     if launches != want:
         raise AssertionError(f"memflow 1080p: kernel launches {launches}, expected {want}")
@@ -1868,7 +2013,7 @@ def phase_memflow(kernels) -> dict:
     small = synthetic_clip(sn, sh, sw, SEED + 18)
     engine.stream_flows(small[:2])                                 # warm-up
     _, s_wall, s_peak, s_launches = memflow_stream(engine, kernels, small)
-    want = expected_launches(kernels, dense_lookup=sn * cfg.decoder_depth)
+    want = expected_launches(kernels, steps=sn * cfg.decoder_depth, dense_lookup=sn * cfg.decoder_depth)
     if s_launches != want:
         raise AssertionError(f"memflow {sw}x{sh}: kernel launches {s_launches}, expected {want}")
     log(f"memflow stream_flows: {sn} frames of {sw}x{sh} in {s_wall:.3f} s = {sn / s_wall:.4f} frames/s, "
@@ -1885,7 +2030,7 @@ CHECKED_ARG = "--checked-build"
 
 def phase_checked_start():
     """Starts this script in a child process with CHECKED_ARG (main_checked):
-    the bounds-checked build of every kernel, each of the six wrappers on its
+    the bounds-checked build of every kernel, each of the seven wrappers on its
     ragged and plane-edge shapes.  A trap poisons the CUDA context, hence the
     process of its own.  Returns the child, for phase_checked_wait."""
     from pathlib import Path
@@ -1941,6 +2086,7 @@ def main_checked() -> int:
         check_corr_patch_ragged(torch.Generator(device=dev).manual_seed(SEED + 3), dev, wrapper, plain)
     for layout in ("flat", "band"):
         check_volume_patch_ragged(torch.Generator(device=dev).manual_seed(SEED + 4), dev, layout)
+    check_depthwise_ragged(torch.Generator(device=dev).manual_seed(SEED + 40), dev)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     if min(launches.values()) < 1:
@@ -1986,7 +2132,8 @@ def phase_parity(kernels) -> dict:
         reset_launches(kernels)
         out["memflow"][dev] = engine.stream_flows(frames)
         cfg = engine.config
-        want = expected_launches(kernels, flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
+        want = expected_launches(kernels, steps=n * cfg.decoder_depth,
+                                 flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
                                  flash_attention_fwd=n * cfg.decoder_depth)
         if dev == "cuda" and read_launches(kernels) != want:
             raise AssertionError(f"parity memflow: kernel launches {read_launches(kernels)}, expected {want}")
@@ -2378,7 +2525,7 @@ def phase_pipeline(kernels, engine_fps: Optional[dict] = None) -> dict:
         # --tile, and its cache re-rendered.
         args = argv("tile", "--tile", "--taa", "--save-flow", "both")
         res = run_cli(kernels, args)
-        want = expected_launches(kernels, dense_lookup=n * 24, flash_attention_fwd=n * 12)
+        want = expected_launches(kernels, steps=n * 12, dense_lookup=n * 24, flash_attention_fwd=n * 12)
         if res["launches"] != want:
             raise AssertionError(f"pipeline --tile: kernel launches {res['launches']}, expected {want}")
         out["tile"] = cli_summary("--tile", res, n)
@@ -2419,7 +2566,8 @@ def phase_pipeline(kernels, engine_fps: Optional[dict] = None) -> dict:
         args = argv("untiled", "--taa", "--save-flow", "both", "--batch-frames", "4")
         res = run_cli(kernels, args)
         batches = -(-n // 4)
-        want = expected_launches(kernels, flash2_patch_level=batches * 96, flash_attention_fwd=batches * 12)
+        want = expected_launches(kernels, steps=batches * 12, flash2_patch_level=batches * 96,
+                                 flash_attention_fwd=batches * 12)
         if res["launches"] != want:
             raise AssertionError(f"pipeline untiled: kernel launches {res['launches']}, expected {want}")
         out["untiled"] = cli_summary("untiled --batch-frames 4", res, n)
@@ -2435,7 +2583,7 @@ def phase_pipeline(kernels, engine_fps: Optional[dict] = None) -> dict:
         # --model memflow.
         args = argv("memflow", "--model", "memflow", "--taa", "--save-flow", "both")
         res = run_cli(kernels, args)
-        want = expected_launches(kernels, flash2_patch_level=n * 48, flash_attention_fwd=n * 12)
+        want = expected_launches(kernels, steps=n * 12, flash2_patch_level=n * 48, flash_attention_fwd=n * 12)
         if res["launches"] != want:
             raise AssertionError(f"pipeline --model memflow: kernel launches {res['launches']}, expected {want}")
         out["memflow"] = cli_summary("--model memflow", res, n)
@@ -2820,7 +2968,7 @@ def phase_correction(kernels) -> dict:
                                     "--tile", "--interactive", "--allow-random-init", "--no-autoplay",
                                     "--uncompressed"])
             text = res["stdout"]
-            want = expected_launches(kernels, dense_lookup=n * 24, flash_attention_fwd=n * 12)
+            want = expected_launches(kernels, steps=n * 12, dense_lookup=n * 24, flash_attention_fwd=n * 12)
             if res["launches"] != want:
                 raise AssertionError(f"--interactive --tile: kernel launches {res['launches']}, expected {want}")
             for marker in (f"Cache incomplete ({n} frames missing)", "--- LOD Cache Statistics ---",
@@ -2950,7 +3098,7 @@ def phase_data_parallel(engine, kernels) -> dict:
     depth = cfg.decoder_depth
     flows, out["tiled"] = mesh_call(
         "tiled stride-1, window_batch 2", lambda: mesh.compute_flows_tiled_stride1(frames, window_batch=2),
-        MAIN_FRAMES, expected_launches(kernels, dense_lookup=MAIN_FRAMES * 2 * depth,
+        MAIN_FRAMES, expected_launches(kernels, steps=MAIN_FRAMES * depth, dense_lookup=MAIN_FRAMES * 2 * depth,
                                        flash_attention_fwd=MAIN_FRAMES * depth))
     out["tiled"]["one_replica_wall_s"] = ref_wall
     if not np.array_equal(flows, ref):
@@ -2964,7 +3112,7 @@ def phase_data_parallel(engine, kernels) -> dict:
     per_batch = dict(flash2_patch_level=2 * depth * cfg.corr_levels, flash_attention_fwd=depth)
     flows, out["untiled"] = mesh_call(
         f"compute_flow_batch, {len(idx)} untiled windows padded to 4", lambda: mesh.compute_flow_batch(frames, idx),
-        len(idx), expected_launches(kernels, **{k: v * DP_SLOTS for k, v in per_batch.items()}))
+        len(idx), expected_launches(kernels, steps=depth * DP_SLOTS, **{k: v * DP_SLOTS for k, v in per_batch.items()}))
     if not np.array_equal(flows[:2], pair):
         raise AssertionError("data parallel untiled: the first replica's two windows are not a one-replica "
                              "batch of the same two, bit for bit")
@@ -2979,7 +3127,7 @@ def phase_data_parallel(engine, kernels) -> dict:
     flows, out["strided"] = mesh_call(
         f"compute_flows_strided, {windows} windows, window_batch 2",
         lambda: mesh.compute_flows_strided(strided, window_batch=2), STRIDED_FRAMES,
-        expected_launches(kernels, **{k: v * dispatches for k, v in per_batch.items()}))
+        expected_launches(kernels, steps=depth * dispatches, **{k: v * dispatches for k, v in per_batch.items()}))
     if not np.array_equal(flows, ref):
         raise AssertionError(f"data parallel strided: not bit for bit the one-replica window_batch 1 "
                              f"(max |diff| {np.abs(flows - ref).max()})")
@@ -3059,7 +3207,8 @@ def phase_spatial(engine, kernels) -> dict:
     frames = synthetic_clip(t, MAIN_H, MAIN_W, SEED + 5)
     engine.compute_flow(frames, t // 2)                        # warm-up
     ref, ref_wall = timed_call(lambda: engine.compute_flow(frames, t // 2))
-    want = expected_launches(kernels, flash2_patch_level=SPATIAL_SLOTS * 2 * depth * cfg.corr_levels,
+    want = expected_launches(kernels, steps=SPATIAL_SLOTS * depth,
+                             flash2_patch_level=SPATIAL_SLOTS * 2 * depth * cfg.corr_levels,
                              flash_attention_fwd=SPATIAL_SLOTS * depth)
     mesh = Mesh([[dev] * SPATIAL_SLOTS], ("data", "spatial"))
     flows, out["untiled_1080p"] = spatial_run(engine, kernels, mesh, frames[None], want,
@@ -3071,7 +3220,7 @@ def phase_spatial(engine, kernels) -> dict:
     clip = synthetic_clip(SPATIAL_SMALL_FRAMES, h, w, SEED + 11)
     windows = np.stack([clip[centered_window_indices(len(clip), i, t)] for i in SPATIAL_SMALL_IDX])
     ref = engine.compute_flow_batch(clip, list(SPATIAL_SMALL_IDX))
-    want = expected_launches(kernels, dense_lookup=4 * 2 * depth, flash_attention_fwd=4 * depth)
+    want = expected_launches(kernels, steps=4 * depth, dense_lookup=4 * 2 * depth, flash_attention_fwd=4 * depth)
     mesh = Mesh([[dev] * 2] * 2, ("data", "spatial"))
     flows, out["untiled_640x480"] = spatial_run(engine, kernels, mesh, windows, want,
                                                 f"two {w}x{h} windows, ('data' 2, 'spatial' 2)")
@@ -3287,7 +3436,8 @@ def phase_distributed(kernels) -> dict:
                    "bit_equal": bool(np.array_equal(dist, ref))}
             if what == "tile":
                 depth = pipe.engine.config.decoder_depth
-                want = expected_launches(kernels, dense_lookup=n * 2 * depth, flash_attention_fwd=n * depth)
+                want = expected_launches(kernels, steps=n * depth, dense_lookup=n * 2 * depth,
+                                         flash_attention_fwd=n * depth)
                 if launches != want:
                     raise AssertionError(f"distributed tile: launches {launches}, expected {want}")
                 res["vs_one_process"] = check_flows_agree("distributed --tile vs one process", dist, ref)
@@ -3337,7 +3487,8 @@ def phase_train(kernels, dev) -> dict:
     TRAIN_WINDOWS windows (one per replica) and AdamW(lr=1e-4,
     weight_decay=1e-4, eps=1e-8), under torch's default TF32 flags (cuDNN
     may use TF32, matmuls do not), logged: finite losses, every trained
-    parameter moved, ms per step by CUDA events and peak memory.  Then a
+    parameter moved, ms per step by CUDA events and peak memory, and K7's
+    launches (PCBlock4's forward; its backward is the plain twin's).  Then a
     backward with dense_lookup='auto' (K1) and with gma_impl='flash' (K2)
     raises the kernels' refusal; then one step at a narrow width on the card
     and on the CPU with TF32 off, and on the card shard_train_step over two
@@ -3386,8 +3537,10 @@ def phase_train(kernels, dev) -> dict:
         f"{peak:.2f} GiB, {moved} of {len(start)} parameters moved ({trained} with a gradient), launches {launches}")
     if not all(math.isfinite(v) for v in losses) or moved < trained or trained < len(start) - 1:
         raise AssertionError(f"train: losses {losses}, {moved} parameters moved, {trained} with a gradient")
-    if any(launches.values()):
-        raise AssertionError(f"train: the plain formulations launched kernels {launches}")
+    # The plain formulations of K1 and K2; K7 forward (its backward is its plain twin's).
+    want = expected_launches(kernels, steps=TRAIN_STEPS * DP_SLOTS * model.decoder_depth)
+    if launches != want:
+        raise AssertionError(f"train: kernel launches {launches}, expected {want}")
     out = {"crop": [h, w], "windows": TRAIN_WINDOWS, "replicas": DP_SLOTS, "losses": losses, "ms_per_step": ms,
            "peak_gib": peak, "tf32_flags": tf32, "parameters_moved": moved, "parameters": len(start)}
     del step, opt, start
@@ -3444,15 +3597,17 @@ def phase_train(kernels, dev) -> dict:
 
 
 def kernel_counters() -> dict:
-    """The six kernels' wrappers by name; each counts its launches."""
+    """The seven kernels' wrappers by name; each counts its launches."""
     from tpuflow_torch.kernels.bandlookup import band_patch_level
     from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
+    from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd
     from tpuflow_torch.kernels.flashcorr import flash_patch_level
     from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
 
     return {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
-                                       dense_patch_level, flash_patch_level, band_patch_level)}
+                                       dense_patch_level, flash_patch_level, band_patch_level,
+                                       depthwise_residual_gelu)}
 
 
 def main() -> int:
@@ -3485,6 +3640,7 @@ def main() -> int:
         check_volume_patch(dev, "band"),
     ]
     far = check_volume_patch_far(dev)
+    depthwise = check_depthwise(dev)
     for row in rows:
         if row["name"] in ("dense_patch_level", "band_patch_level"):
             row["farthest_entry_checked"] = far["flat" if row["name"] == "dense_patch_level" else "band"]
@@ -3528,7 +3684,9 @@ def main() -> int:
         "dense_patch_level": forms["patch"]["launches"],
         "flash_patch_level": forms["flash"]["launches"],
         "band_patch_level": forms["band"]["launches"],
+        "depthwise_residual_gelu": memflow["launches"],
     }
+    rows.append(depthwise)
     for row in rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
         if row["launches"] < 1:

@@ -47,6 +47,7 @@ from tpuflow_torch.core.corr import DenseCorrPyramid
 from tpuflow_torch.core.mofnet import MOFNet
 from tpuflow_torch.kernels.bandlookup import band_patch_level, band_patch_levels
 from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level, dense_patch_levels
+from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu
 from tpuflow_torch.kernels.flashattn import flash_attention_fwd
 from tpuflow_torch.kernels.flashcorr import flash_patch_level
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
@@ -406,6 +407,7 @@ def wrapper_calls():
         "flash_attention_fwd": lambda: flash_attention_fwd(q, q, q),
         "flash2_patch_level": lambda: flash2_patch_level(f1[:1], f2l, idx[:1], idx[:1], grid_w=4),
         "flash_patch_level": lambda: flash_patch_level(f1[:1], f2l, idx[:1], idx[:1]),
+        "depthwise_residual_gelu": lambda: depthwise_residual_gelu(rand(1, 6, 7, 4), rand(4, 1, 7, 7), rand(4)),
     }
 
 
@@ -415,7 +417,8 @@ def test_kernel_wrappers_refuse_a_gradient(name):
     version here) and counts no launch on the CPU; a backward through its
     result raises and names the differentiable formulations."""
     counters = [f"kernels.{fn.__name__}.launches" for fn in (dense_lookup, dense_patch_level, band_patch_level,
-                                                             flash_attention_fwd, flash2_patch_level, flash_patch_level)]
+                                                             flash_attention_fwd, flash2_patch_level, flash_patch_level,
+                                                             depthwise_residual_gelu)]
 
     def launches():
         found = profiling.snapshot()["counters"]
@@ -429,6 +432,21 @@ def test_kernel_wrappers_refuse_a_gradient(name):
         out.float().sum().backward()
     with torch.no_grad():
         assert not wrapper_calls()[name]().requires_grad
+
+
+@pytest.mark.parametrize("name", list(wrapper_calls()))
+def test_kernel_wrappers_skip_the_function_without_a_graph(monkeypatch, name):
+    """With grad off, where autograd records nothing, an entry runs without
+    the refusing Function (whose host cost inference does not pay)."""
+    from tpuflow_torch.kernels import _nograd
+
+    def refuse_apply(*args):
+        raise AssertionError("the refusing Function ran under no_grad")
+
+    monkeypatch.setattr(_nograd._Refuse, "apply", refuse_apply)
+    with torch.no_grad():
+        out = wrapper_calls()[name]()
+    assert not out.requires_grad and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("dense_lookup_impl,gma_impl,refuses", [

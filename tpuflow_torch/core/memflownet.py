@@ -90,7 +90,7 @@ def memory_write(mem: MemoryState, key: torch.Tensor, value: torch.Tensor) -> Me
     keys, values, valid = mem.keys.clone(), mem.values.clone(), mem.valid.clone()
     keys[rows, slot] = key.to(keys.dtype).clamp(-CARRY_CLAMP, CARRY_CLAMP)
     values[rows, slot] = value.to(values.dtype).clamp(-CARRY_CLAMP, CARRY_CLAMP)
-    valid[rows, slot] = 1.0
+    valid[rows, slot] = valid.new_ones(())     # a device value: a host scalar's copy would wait for the card
     return MemoryState(keys, values, valid, mem.ptr + 1)
 
 

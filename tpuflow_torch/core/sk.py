@@ -4,8 +4,10 @@ SKUpdateBlock6_Deep_nopoolres_AllDecoder2, and MemFlow's two-frame
 SKMotionEncoderMem and SKUpdateBlockMem, under their upstream state-dict
 names.  Public tensors are NHWC; the convs run on NCHW views of them.
 
-In a spatially sharded call (core/strips.py) the depthwise convs of
-PCBlock4 (15x15: a 7-row halo; 7x7 in the 'gru': 3 rows) and the mask
+PCBlock4's depthwise stages run through kernel K7
+(kernels/depthwise.py), one launch for each k > 1 entry with the k = 1
+entry before it folded in.  In a spatially sharded call (core/strips.py)
+those stages (15x15: a 7-row halo; 7x7 in the 'gru': 3 rows) and the mask
 head's 3x3 fetch their halos; every other conv is 1x1, and the motion
 hidden state shifts across interior frames, not rows.
 """
@@ -17,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..kernels.depthwise import depthwise_stage
 from ..runtime.profiling import span
 from . import strips
 from .encoders import gelu
@@ -46,10 +49,27 @@ class PCBlock4(nn.Module):
         self.pw = nn.Conv2d(c_in, c_in, 1)
         self.ffn2 = nn.Sequential(nn.Conv2d(c_in, mid, 1), nn.GELU(), nn.Conv2d(mid, c_out, 1))
 
+    def depthwise_stages(self, x: torch.Tensor) -> torch.Tensor:
+        """x = gelu(x + conv(x)) for each conv_list entry, on NCHW x: one
+        K7 stage per k > 1 entry, a k = 1 entry before it folded in as the
+        stage's prologue (the kernel on the card in every grad mode; a
+        backward runs through its plain twin)."""
+        xh = nchw_to_nhwc(x)
+        pre = None
+        for j, conv in enumerate(self.conv_list):
+            k = conv.kernel_size[0]
+            if k == 1 and pre is None and j + 1 < len(self.conv_list):
+                pre = conv                      # the next entry's prologue
+                continue
+            rows, pads = strips.depthwise_rows(xh, k)
+            xh = depthwise_stage(rows, conv.weight, conv.bias, None if pre is None else pre.weight,
+                                 None if pre is None else pre.bias, pads=pads)
+            pre = None
+        return nhwc_to_nchw(xh)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = gelu(x + self.ffn1[2](gelu(self.ffn1[0](x))))
-        for conv in self.conv_list:
-            x = gelu(x + strips.conv_same(conv, x))
+        x = self.depthwise_stages(x)
         x = gelu(x + self.pw(x))
         return self.ffn2[2](gelu(self.ffn2[0](x)))
 

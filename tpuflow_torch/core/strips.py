@@ -9,6 +9,8 @@ it computes unsharded.  The few operations that are not local in rows read
 it:
 
 - a convolution that reaches across rows (`conv_same`) fetches its halo;
+  a depthwise stage of PCBlock4 fetches the rows inside the frame and
+  passes the frame's own padding to its kernel (`depthwise_rows`);
 - a norm's statistics are summed over the strips (`Strip.all_sum`);
 - attention and correlation fetch the rows of every strip they read
   (`Strip.gather`, `Strip.fetch`);
@@ -212,3 +214,21 @@ def conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     left, right = _same_pads(x.shape[3], k, s)
     return F.conv2d(F.pad(rows, (left, right)), conv.weight, conv.bias, conv.stride, 0, conv.dilation,
                     conv.groups)
+
+
+def depthwise_rows(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """The input rows of NHWC x [B, H, W, C] that a stride-1 'SAME' k x k
+    depthwise conv reads for its H output rows, and the zero rows (top,
+    bottom) it pads them with: (x, (k // 2, k // 2)) outside a strip; in a
+    strip, the neighbours' rows within k // 2 of its own, fetched, and the
+    padding only where that reaches past the frame's top or bottom.  The
+    padding is left to the caller (kernels/depthwise.py), so that a
+    prologue the kernel applies to the rows does not reach the zeros."""
+    strip = current()
+    h = k // 2
+    if strip is None or h == 0:
+        return x, (h, h)
+    start, stop = strip.span(x.shape[1])
+    total = strip.global_rows(x.shape[1])
+    lo, hi = max(start - h, 0), min(stop + h, total)
+    return strip.fetch(x, 1, lo, hi), (lo - (start - h), stop + h - hi)

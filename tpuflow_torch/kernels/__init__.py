@@ -12,4 +12,6 @@ K3 flashcorr2.flash2_patch_level   csrc/corr_patch.cu
 K4 denselookup.dense_patch_level   csrc/volume_patch.cu
 K5 flashcorr.flash_patch_level     csrc/corr_patch.cu   (K3's function)
 K6 bandlookup.band_patch_level     csrc/volume_patch.cu (K4's function)
+K7 depthwise.depthwise_residual_gelu  csrc/depthwise.cu (no TPU kernel:
+   PCBlock4's depthwise stages, which the JAX package left to XLA)
 """

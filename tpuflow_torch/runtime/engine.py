@@ -205,10 +205,16 @@ class _FetchAll:
 
 @span("tpuflow.engine.upload.copy")
 def _copy_frames(frames: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Frames as they are, made contiguous on the host and copied to `device`."""
+    """Frames as they are, made contiguous on the host and copied to `device`:
+    to a card through pinned memory, queued behind the card's work (a copy
+    from pageable memory would wait for that work, and the card would then
+    idle while the host queues the next)."""
     frames = np.ascontiguousarray(frames)
     count("engine.upload_bytes", frames.nbytes)
-    return torch.from_numpy(frames).to(device)
+    host = torch.from_numpy(frames)
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 @span("tpuflow.engine.upload.prep")
