@@ -1,16 +1,19 @@
-"""Operations and bytes of the benchmark's work, computed from each
-configuration's and cell's shapes and never read from the program, so they
-count the same work whatever implements it.
+"""Operations and bytes of the benchmark's work.  What one delivered frame is
+belongs to the cell's route (routes/<route>.py), which declares it from the
+configuration's and the cell's shapes alone, never from the program, so each
+count is the same work whatever implements it.  The formulas are here:
 
 - `model_flops_per_frame`: the plain reference's own computation per
   delivered frame, counted by torch.utils.flop_counter.FlopCounterMode over
-  the reference on the meta device (matrix products and convolutions, as
-  the counter counts them).  A MemFlow frame encodes its pair, as the
-  reference does.
-- `k2_per_frame`: GMA's aggregation, the product K2 computes: per
-  refinement iteration, softmax(q k^T) v over S = h/8 * w/8 tokens of width
-  D = context_dim: 4 S^2 D operations, and q, k, v and the output once
-  each in bfloat16.
+  the route's `reference_frame(device)` call on the meta device (matrix
+  products and convolutions, as the counter counts them).
+- `k2_per_frame`: GMA's aggregation, the product K2 computes, from the
+  route's `aggregation()`, (rows, tokens S, width D, iterations) per
+  delivered frame: per row and iteration softmax(q k^T) v over S tokens of
+  width D, 4 S^2 D operations, and q, k, v and the output once each in
+  bfloat16.
+
+A route that declares no such count gets None, and its reader reads nothing.
 
 Published H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s in
 bfloat16, 3.35 TB/s of HBM3, at the full power limit of 700 W.
@@ -18,13 +21,10 @@ bfloat16, 3.35 TB/s of HBM3, at the full power limit of 700 W.
 
 from __future__ import annotations
 
-import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
-
-from ..models import reference_model
 
 BF16_FLOP_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -37,23 +37,24 @@ def flops(fn) -> int:
     return counter.get_total_flops()
 
 
-def model_flops_per_frame(config: dict, traffic: dict, device="meta") -> int:
-    """Operations of the reference per delivered frame: one pair of padded
-    frames through the MemFlow reference."""
-    model = reference_model(config, device)
-    h, w = traffic["height"], traffic["width"]
-    ph, pw = h + (-h) % 8, w + (-w) % 8
-    pair = torch.zeros(1, 2, 3, ph, pw, device=device)
-    mem = model.empty_memory(1, ph, pw, device)
-    return flops(lambda: model(pair, mem))
+def model_flops_per_frame(route, device="meta") -> Optional[int]:
+    """Operations of the reference per delivered frame, as `route` declares
+    them; None where it declares none."""
+    frame = getattr(route, "reference_frame", None)
+    return None if frame is None else flops(frame(device))
 
 
-def k2_per_frame(config: dict, traffic: dict) -> Tuple[int, int]:
-    """(operations, bytes) of GMA's aggregation per delivered frame."""
-    mc = config["model_config"]
-    s = math.ceil(traffic["height"] / 8) * math.ceil(traffic["width"] / 8)
-    d = mc["context_dim"]
-    return mc["decoder_depth"] * 4 * s * s * d, mc["decoder_depth"] * 4 * s * d * 2
+def aggregation_work(rows: int, tokens: int, width: int, iterations: int) -> Tuple[int, int]:
+    """(operations, bytes) of GMA's aggregation over `rows` batch rows of
+    `tokens` tokens of `width`, `iterations` times."""
+    return iterations * rows * 4 * tokens * tokens * width, iterations * rows * 4 * tokens * width * 2
+
+
+def k2_per_frame(route) -> Optional[Tuple[int, int]]:
+    """(operations, bytes) of GMA's aggregation per delivered frame, as
+    `route` declares it; None where it declares none."""
+    work = getattr(route, "aggregation", None)
+    return None if work is None else aggregation_work(*work())
 
 
 def least_seconds(ops: float, nbytes: float) -> float:

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib
 import json
 import sys
 import time
@@ -26,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from . import spans
 from . import spec as spec_mod
 from . import trace as trace_mod
 from .models import reference_model
@@ -78,36 +78,14 @@ class Window:
         return self.frames / (self.t_close - self.t_open)
 
 
-def annotate(path: str) -> Callable[[], None]:
-    """Wrap the program's callable at `module:Class.method` in a profiler
-    annotation named flowbench.<Class.method> for the traced call, so that
-    the trace's idle gaps are named by the program's stage; returns the
-    undo."""
-    from torch.profiler import record_function
-
-    module, attr = path.split(":")
-    owner_name, method = attr.rsplit(".", 1)
-    owner = importlib.import_module(module)
-    for part in owner_name.split("."):
-        owner = getattr(owner, part)
-    orig = owner.__dict__[method]
-
-    def wrapped(*args, **kw):
-        with record_function(f"flowbench.{attr}"):
-            return orig(*args, **kw)
-
-    setattr(owner, method, wrapped)
-    return lambda: setattr(owner, method, orig)
-
-
 class Tracer:
-    """Runs the window's first call under torch.profiler with the per-layer
-    metrics' hooks installed; a no-op in an untraced run."""
+    """Runs the window's first call under torch.profiler with the program's
+    spans on (they name the trace's idle gaps) and the per-layer metrics'
+    hooks installed; a no-op in an untraced run."""
 
-    def __init__(self, run: "Run", metrics: Dict[str, object], route=None):
+    def __init__(self, run: "Run", metrics: Dict[str, object]):
         self.run = run
         self.metrics = metrics
-        self.route = route
         self.result: Optional[trace_mod.Traced] = None
 
     def call(self, fn: Callable[[], int], index: int) -> int:
@@ -119,8 +97,8 @@ class Tracer:
             return frames
         from torch.profiler import ProfilerActivity, profile, record_function
 
-        undo = [m.install(self.run) for m in self.metrics.values() if hasattr(m, "install")]
-        undo += [annotate(path) for path in getattr(self.route, "SPANS", ())]
+        undo = [spans.install(self.run)]
+        undo += [m.install(self.run) for m in self.metrics.values() if hasattr(m, "install")]
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 with record_function("flowbench.traced_call"):
@@ -140,7 +118,8 @@ class Tracer:
 
 
 class Run:
-    """The state of one run, shared by its route and the metric readers."""
+    """The state of one run, shared by its route and the metric readers
+    (`route`: the cell's route, set once it is built)."""
 
     def __init__(self, cell_name: str, seed: int, seconds: float, traced: bool, device: str,
                  t0: float, spec: spec_mod.Spec, overrides: Optional[dict] = None):
@@ -155,6 +134,7 @@ class Run:
                        "reference_args": {**self.config["reference_args"], **overrides.get("reference_args", {})}}
         self.traffic = {**spec.traffic(self.cell["traffic"]), **overrides.get("traffic", {})}
         self.engine = None
+        self.route = None
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -208,7 +188,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, device: st
     t0 = time.perf_counter() if t0 is None else t0
     spec = spec or spec_mod.Spec()
     run = Run(cell_name, seed, seconds, traced, device, t0, spec, overrides)
-    route = importlib.import_module(f"flowbench.routes.{run.cell['route']}").Route(run)
+    route = run.route = spec.route_module(run.cell["route"]).Route(run)
     if keep is not None:
         keep["route"] = route
     route.setup()
@@ -222,7 +202,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, device: st
     metrics = {}
     if traced:
         metrics = {m["name"]: spec.metric_module(m["name"]) for m in spec.per_layer(cell_name)}
-    tracer = Tracer(run, metrics, route)
+    tracer = Tracer(run, metrics)
     window = Window(seconds)
     route.window(window, tracer)
     run.sync()

@@ -10,8 +10,6 @@ UNIT = "ms/frame"
 MOVES = "frames_per_s"
 SPAN = "tpuflow.memflow.encode"
 
-install = spans.install
-
 
 def read(run, traced):
     return spans.device_ms_per_frame(SPAN, traced)

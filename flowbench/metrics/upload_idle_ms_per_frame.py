@@ -12,8 +12,6 @@ UNIT = "ms/frame"
 MOVES = "frames_per_s"
 SPAN = "tpuflow.engine.upload"
 
-install = spans.install
-
 
 def read(run, traced):
     if not traced.device or traced.frames == 0:

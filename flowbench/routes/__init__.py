@@ -2,4 +2,12 @@
 `Route(run)` with `RATE` (the end-to-end rate it measures), `setup()`,
 `warmup()`, `window(window, tracer)`, `release()` and `check(window)` (the
 compared numbers, after the window, against the plain reference).  A cell
-names its route and the route's arguments in its workload file."""
+names its route and the route's arguments in its workload file.
+
+A route also says what one delivered frame's work is, for the readers that
+count it (counts/): `reference_frame(device)`, a call of the plain
+reference whose operations are one delivered frame's, and `aggregation()`,
+GMA's aggregation per delivered frame as (rows, tokens, width,
+iterations).  Both follow from the configuration and the cell's shapes
+alone, never from the program.  A route without one leaves its reader
+without a reading."""

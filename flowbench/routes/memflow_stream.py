@@ -4,24 +4,38 @@ CLI's --model memflow calls it.  Unit: a segment."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from .. import traffic
-from ..models import program_engine
+from ..models import program_engine, reference_model
 from ..reference import plain
 
 
 class Route:
     RATE = "frames_per_s"
-    # Stages of a streamed frame that name the traced call's idle gaps.
-    SPANS = ("tpuflow_torch.runtime.engine:FlowEngine._upload",
-             "tpuflow_torch.runtime.engine:_Fetch.result",
-             "tpuflow_torch.core.memflownet:MemFlowNet.encode",
-             "tpuflow_torch.core.memflownet:MemFlowNet.refine",
-             "tpuflow_torch.core.memflownet:MemoryReader.forward")
 
     def __init__(self, run):
         self.run = run
+
+    def reference_frame(self, device):
+        """One delivered frame's work (counts): one pair of padded frames
+        through the MemFlow reference on an empty memory."""
+        model = reference_model(self.run.config, device)
+        h, w = self.run.traffic["height"], self.run.traffic["width"]
+        ph, pw = h + (-h) % 8, w + (-w) % 8
+        pair = torch.zeros(1, 2, 3, ph, pw, device=device)
+        memory = model.empty_memory(1, ph, pw, device)
+        return lambda: model(pair, memory)
+
+    def aggregation(self):
+        """GMA's aggregation per delivered frame (counts): one row of the
+        1/8 grid's tokens at the configuration's width and depth."""
+        mc = self.run.config["model_config"]
+        h, w = self.run.traffic["height"], self.run.traffic["width"]
+        return 1, math.ceil(h / 8) * math.ceil(w / 8), mc["context_dim"], mc["decoder_depth"]
 
     def setup(self) -> None:
         run = self.run

@@ -2,8 +2,8 @@
 
 The program (tpuflow_torch/runtime/profiling.py) keeps spans and counters
 in one registry.  `install(run)` clears it and turns the spans on for the
-traced call (the harness installs every reader before that call and undoes
-them after it); `device_ms_per_frame` reads a span's device time from the
+traced call (the harness installs it before that call, in every cell, and
+undoes it after); `device_ms_per_frame` reads a span's device time from the
 registry.  Under the profiler each span is also a host event of the trace
 (`Traced.host`), on the kernels' clock.  A program without the registry
 gives nothing to read: install returns None and the readers return None."""

@@ -1,7 +1,8 @@
 """The benchmark's data, found by name: BENCHMARK.json at the repository's
 root, and under this directory configs/<config>.json, workloads/<cell>.json,
-traffic/<traffic>.json and metrics/<metric>.py.  Adding a cell, a
-configuration, a traffic mix or a metric adds files; nothing here changes."""
+traffic/<traffic>.json, routes/<route>.py and metrics/<metric>.py.  Adding a
+cell, a configuration, a traffic mix, a route or a metric adds files and
+list entries; nothing here changes."""
 
 from __future__ import annotations
 
@@ -24,6 +25,13 @@ def read_json(path: Path) -> dict:
         return json.load(f)
 
 
+def _load(module_name: str, path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 class Spec:
     """BENCHMARK.json and the files it names.  `home` is this directory
     (tests point it at a copy)."""
@@ -42,11 +50,12 @@ class Spec:
         return self._named("traffic", name, ".json")
 
     def metric_module(self, name: str) -> ModuleType:
-        path = self._path("metrics", name, ".py")
-        spec = importlib.util.spec_from_file_location(f"flowbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        return _load(f"flowbench_metric_{name.replace('.', '_').replace('-', '_')}", self._path("metrics", name, ".py"))
+
+    def route_module(self, name: str) -> ModuleType:
+        """routes/<name>.py, as a module of the package flowbench.routes (its
+        relative imports reach the harness's modules)."""
+        return _load(f"flowbench.routes.{name}", self._path("routes", name, ".py"))
 
     def _path(self, kind: str, name: str, suffix: str) -> Path:
         if not NAME_RE.match(name):
@@ -65,10 +74,12 @@ class Spec:
 
     def per_layer(self, cell: str) -> List[dict]:
         """The per-layer metrics that a traced run of `cell` tries: every one
-        whose end-to-end metric the cell reports (a reader that finds nothing
-        to read in the cell returns None)."""
+        whose end-to-end metric the cell reports and whose `workloads` list,
+        where it has one, names the cell (a reader that finds nothing to read
+        in the cell returns None)."""
         moved = {m["name"] for m in self.end_to_end(cell)}
-        return [m for m in self.bench["per_layer"] if m["moves"] in moved]
+        return [m for m in self.bench["per_layer"]
+                if m["moves"] in moved and ("workloads" not in m or cell in m["workloads"])]
 
     def cells(self) -> Dict[str, dict]:
         return {w["name"]: w for w in self.bench["workloads"]}

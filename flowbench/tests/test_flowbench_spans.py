@@ -77,7 +77,7 @@ def test_span_readers_read_device_time_per_frame(monkeypatch):
     tr = traced([("k", 0.0, 1.0)], [], frames=4)
     assert reader("reader_ms_per_frame").read(None, tr) == pytest.approx(75.0)
     assert reader("encode_ms_per_frame").read(None, tr) == pytest.approx(20.0)
-    undo = reader("reader_ms_per_frame").install(None)
+    undo = spans.install(None)
     assert reg.on and reg.cleared == 1
     undo()
     assert not reg.on
@@ -91,7 +91,7 @@ def test_readers_give_none_without_their_span(monkeypatch, name):
     assert reader(name).read(None, tr) is None
     # A program without the registry: nothing installed, nothing read.
     monkeypatch.setattr(spans, "_registry", lambda: None)
-    assert reader(name).install(None) is None
+    assert spans.install(None) is None
     assert reader(name).read(None, tr) is None
 
 

@@ -67,6 +67,20 @@ def test_each_metric_is_reported_where_listed():
         assert spec.per_layer(cell)
 
 
+def test_per_layer_follows_each_metrics_list(tmp_path):
+    bench = {**BENCH, "workloads": BENCH["workloads"] + [{"name": "other", "config": "memflow-t",
+                                                         "traffic": "video-1080p-seg24", "chips": 1, "why": "x"}]}
+    bench["end_to_end"] = [{**m, "workloads": m["workloads"] + ["other"]} if "workloads" in m else m
+                           for m in BENCH["end_to_end"]]
+    bench["per_layer"] = BENCH["per_layer"][:2] + [{k: v for k, v in BENCH["per_layer"][2].items() if k != "workloads"}]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    spec = spec_mod.Spec(HOME, tmp_path / "BENCHMARK.json")
+    # Listed only for the first cell: not tried in the other; without a list:
+    # tried wherever its end-to-end metric is reported.
+    assert [m["name"] for m in spec.per_layer("other")] == [BENCH["per_layer"][2]["name"]]
+    assert [m["name"] for m in spec.per_layer("memflow-stream-1080p")] == [m["name"] for m in BENCH["per_layer"][:3]]
+
+
 def digest(root):
     return {p.relative_to(root): hashlib.sha1(p.read_bytes()).hexdigest() for p in sorted(root.rglob("*")) if p.is_file()}
 
