@@ -46,6 +46,7 @@ from tpuflow.tools import pipeline as jpipeline_module
 from tpuflow.tools.pipeline import FlowPipeline as JaxFlowPipeline
 from tpuflow.tools.pipeline import create_difference_overlay as jax_difference_overlay
 from tests.test_torch_port_model import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
+from tests.jax_learned_start import jax_learned_start  # noqa: F401 (autouse)
 
 from tpuflow_torch.config import PipelineConfig
 from tpuflow_torch.pipeline.cache import FlowCacheManager

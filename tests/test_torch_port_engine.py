@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from tpuflow.core.mofnet import MOFNet as JaxMOFNet
 from tpuflow.runtime.convert import unflatten_params
 from tests.test_torch_port_model import CFG, H, W, one_torch_thread, random_flax_params  # noqa: F401 (autouse)
+from tests.jax_learned_start import jax_learned_start  # noqa: F401 (autouse)
 
 from tpuflow_torch.runtime.convert import state_dict_from_jax
 

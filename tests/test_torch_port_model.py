@@ -22,6 +22,7 @@ from tpuflow.core.mofnet import MOFNet as JaxMOFNet
 from tpuflow.core.sk import SKUpdateBlockMOF as JaxSKUpdateBlockMOF
 from tpuflow.core.update import upsample_flow_convex as jax_upsample_flow_convex
 from tpuflow.runtime.convert import unflatten_params
+from tests.jax_learned_start import jax_learned_start  # noqa: F401 (autouse)
 from tests.mirrors.mof_torch import MOFNetMirror
 
 from tpuflow_torch.core.encoders import BasicEncoder, ResidualBlock

@@ -32,6 +32,7 @@ from tpuflow.core.mofnet import MOFNet as JaxMOFNet
 from tpuflow.runtime import sharding as jsharding
 from tpuflow.runtime.convert import unflatten_params
 from tests.test_torch_port_model import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
+from tests.jax_learned_start import jax_learned_start  # noqa: F401 (autouse)
 
 from tpuflow_torch.core import corr as tcorr
 from tpuflow_torch.core import strips

@@ -50,6 +50,7 @@ from ..kernels.bandlookup import band_patch_levels
 from ..kernels.denselookup import dense_lookup, dense_patch_levels
 from ..kernels.flashcorr import flash_patch_level
 from ..kernels.flashcorr2 import flash2_patch_level
+from ..runtime.profiling import count
 
 MATERIALIZE_THRESHOLD = 168 * 168
 DENSE_LOOKUP_IMPLS = ("auto", "patch", "xla")
@@ -367,6 +368,7 @@ class DenseCorrPyramid:
             # power of two at C=256, so the bf16 product rounds once.
             vol = torch.matmul(q, flat.transpose(1, 2)).mul_(scale)
             pyramid.append(vol.reshape(b * h * w, lh, lw))
+        count("corr.dense_bytes", sum(v.numel() * v.element_size() for v in pyramid))
         return cls(pyramid, row0=row0)
 
     def lookup(self, flow: torch.Tensor, radius: int = 4, impl: Optional[str] = None,

@@ -16,9 +16,10 @@ flows_bwd), each [B, T-2, H, W, 2], for the interior frames.
   state shifted across interior frames, then the convex 8x upsample with
   the last step's mask.
 
-Like the JAX reference, refinement starts the motion hidden state at
-zeros (mofnet.py:482); the learned `init_hidden_state` is loaded but not
-read on this path.
+Refinement starts the motion hidden state from the update block's
+learned `init_hidden_state`, as upstream VideoFlow does (the motion encoder
+expands it at the first step).  The JAX package starts it at zeros
+(tpuflow/core/mofnet.py:482): the port departs from it there.
 
 The stride-1 engine's pair-cached loop builds each frame pair's
 correlation once (`pair_corr_state`) and refines from per-frame context and
@@ -69,6 +70,9 @@ class MOFEncoded(NamedTuple):
 # frame, two 960x1080 tiles).  The Twins global attention materializes f32
 # scores of (H/4 * W/4) queries x (H/32 * W/32) keys per head and frame.
 ENCODER_CHUNK_PIXELS = 2**21
+# The correlation objects' build (the dense pyramid's GEMMs and pooling, or
+# FlashCorr2's pooled features).
+CORR_SPAN = span("tpuflow.mof.corr")
 
 
 def encode_chunked(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -168,10 +172,12 @@ class MOFNet(nn.Module):
         bwd_tgt = targets[:, 0 : t - 2].reshape(b * n, -1, w8, targets.shape[-1]).to(self.corr_dtype)
         kw = dict(impl=self.corr_impl, materialize_threshold=self.materialize_threshold,
                   row0=strips.first_row(h8))
-        corr_fwd = make_corr(center, fwd_tgt, self.corr_levels, **kw)
-        corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, **kw)
+        with CORR_SPAN:
+            corr_fwd = make_corr(center, fwd_tgt, self.corr_levels, **kw)
+            corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, **kw)
         return MOFEncoded(inp, net, q, k, corr_fwd, corr_bwd, b)
 
+    @CORR_SPAN
     def pair_corr_state(self, center: torch.Tensor, target: torch.Tensor):
         """The correlation object of one (center, target) frame pair, each
         [M, h, w, Cf]: it depends on the pair only, so the stride-1 loop
@@ -233,7 +239,7 @@ class MOFNet(nn.Module):
         n = bn // b
         flow = torch.zeros((bn, h8, w8, 4), dtype=torch.float32, device=enc.net.device)
         net = enc.net
-        mhs = torch.zeros((b, n, h8, w8, 48), dtype=self.dtype, device=enc.net.device)
+        mhs = None          # the motion encoder expands the learned init
         strip = strips.current()
         k = enc.k if strip is None else strip.gather(enc.k, 1)
         attn = None

@@ -85,6 +85,8 @@ BENCH_RANDOM_INIT = "__bench_random_init__"
 # override, read under the same name, sets the volumes' budget in bytes.
 WB_BUDGET_ENV = "TPUFLOW_WB_HBM_BUDGET"
 WB_ACTIVATION_SHARE = 0.25
+# The host's paste of a frame's tile flows into the whole frame.
+PASTE_SPAN = span("tpuflow.engine.paste")
 
 
 def default_compute_dtype(device: torch.device) -> torch.dtype:
@@ -469,6 +471,7 @@ class FlowEngine:
         device (default the engine's)."""
         dev, model = slot or (self.device, self.model)
         tiles = extract_tile_group(frame[None], tiles_info, idxs, overlap)[:, 0]
+        count("engine.tiles", len(idxs))
         return model.frame_features(self._upload(tiles, dev))
 
     def _middle_flow(self, up_fwd: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -535,7 +538,8 @@ class FlowEngine:
             for j, ti in enumerate(idxs):
                 tile_flows[ti] = group_flows[j]
         count("engine.frames")
-        return paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
+        with PASTE_SPAN:
+            return paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
 
     def _clamp_window_batch(self, wb: int, t: int, groups) -> int:
         """The stride-1 window batch, clamped so that one batch's dense
@@ -646,7 +650,8 @@ class FlowEngine:
                     for j, ti in enumerate(idxs):
                         tile_flows[k][ti] = host[k * len(idxs) + j]
             for k, i in enumerate(outs):
-                flows_out[i] = paste_tile_flows(tile_flows[k], tiles_info, w, h, tile_size, overlap)
+                with PASTE_SPAN:
+                    flows_out[i] = paste_tile_flows(tile_flows[k], tiles_info, w, h, tile_size, overlap)
                 count("engine.frames")
                 if progress_cb is not None:
                     progress_cb(i, flows_out[i])
@@ -742,7 +747,8 @@ class FlowEngine:
                 host = fetched.result()
                 for j, ti in enumerate(idxs):
                     tile_flows[ti] = host[j]
-            flows_out[i] = paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
+            with PASTE_SPAN:
+                flows_out[i] = paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
             count("engine.frames")
             if progress_cb is not None:
                 progress_cb(i, flows_out[i])
