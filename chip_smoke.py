@@ -35,6 +35,11 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    bf16 with the pointwise entry folded in, timed beside its bound (bytes,
    or operations at the tensor cores' rate), its plain twin and the
    module's former cuDNN composition, and on ragged shapes in bf16 and f32.
+   K8 (PCBlock4's 1x1 convs, no TPU kernel) at every (M, K, N, residual,
+   GELU) of both cells' SK blocks in bf16, timed beside its bound, its
+   plain twin and F.linear with the add and the GELU, and on ragged shapes
+   (tails of every tile, 8- to 1-element copies, unaligned and strided
+   rows) in bf16 and f32.
 4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
    synthetic 1920x1080 frames at the full configuration (Twins-SVT, 4
    levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
@@ -139,7 +144,7 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    CPU with TF32 off.
 20. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
-   with its bounds guards (kernels/_build.py, checked=True), each of the seven
+   with its bounds guards (kernels/_build.py, checked=True), each of the eight
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
    poisons the child's CUDA context and its non-zero exit fails the run.
 
@@ -277,6 +282,11 @@ def phase_build() -> None:
     log(f"  corr_patch SASS: {counts}")
     if not any(counts.values()):
         raise AssertionError(f"corr_patch holds no tensor-core instruction: {counts}")
+    # K8's bf16 kernel must run its products as wgmma (HGMMA).
+    counts = sass_counts(_build.library_path("pointwise_gemm"), ("HGMMA",))
+    log(f"  pointwise_gemm SASS: {counts}")
+    if not counts["HGMMA"]:
+        raise AssertionError(f"pointwise_gemm is not built from wgmma: {counts}")
 
 
 def random_volumes(g, dev, n, h, w, levels, dtype):
@@ -1102,6 +1112,157 @@ def check_depthwise(dev) -> dict:
             "stages": stages, "per_memflow_frame": frame}
 
 
+# PCBlock4's five 1x1 convolutions (K8), per block: (K, N, residual, GELU)
+# from the block's (c_in, c_out) and its output GELU (the motion encoders'
+# gelu(convc1)).  MOF at the tile shape (6 rows of a 135 x 120 grid),
+# MemFlow at 1080p (1 x 135 x 240); six blocks a refinement step each.
+POINTWISE_BLOCKS = {
+    "mof": (6 * 135 * 120, (("convc1", 648, 256, True), ("convc2", 256, 192, False), ("convf2", 128, 64, False),
+                            ("conv", 400, 172, False), ("gru", 512, 128, False), ("flow_head", 128, 4, False))),
+    "memflow": (135 * 240, (("convc1", 324, 256, True), ("convc2", 256, 192, False), ("convf2", 128, 64, False),
+                            ("conv", 384, 126, False), ("gru", 512, 128, False), ("flow_head", 128, 2, False))),
+}
+POINTWISE_PER_PCBLOCK = 5
+# Ragged shapes (M, K, N, residual, act, x's offset in elements, extra
+# elements at the end of x's and the residual's rows, output rows padded):
+# tails of every tile and k-step, K that takes 8-, 4-, 2- and 1-element
+# copies and K that a 16-byte copy straddles (rows padded as the FFN's
+# middle tensor is), N below the narrowest tile and past the widest,
+# unaligned starts and strided rows.
+POINTWISE_RAGGED = ((1, 8, 1, False, False, 0, 0, False), (127, 9, 3, True, True, 0, 0, True),
+                    (129, 18, 9, True, False, 1, 0, False), (300, 20, 100, False, True, 2, 4, True),
+                    (257, 130, 257, True, True, 0, 6, False), (200, 65, 513, True, True, 0, 1, True),
+                    (513, 648, 972, True, True, 4, 0, True), (384, 972, 256, False, True, 0, 4, False),
+                    (131, 486, 324, True, True, 0, 2, False), (64, 40, 8, True, True, 3, 0, False),
+                    (1000, 256, 1, False, False, 0, 0, True), (150, 24, 40, True, True, 0, 0, False),
+                    (90, 48, 70, True, False, 0, 2, True), (333, 136, 200, True, True, 0, 0, False),
+                    (257, 972, 648, True, True, 0, 4, False), (77, 20, 30, False, True, 0, 4, True))
+
+
+def pointwise_shapes() -> list:
+    """Each distinct (cell, M, K, N, residual, act, x's row padding, output
+    rows padded) of both cells' SK blocks, as PCBlock4 launches them (the
+    FFN's middle tensor written with rows padded to 16 bytes and read so),
+    with its convolutions and its launches a refinement step."""
+    from tpuflow_torch.kernels.pointwise import _padded
+
+    rows = {}
+    for cell, (m, blocks) in POINTWISE_BLOCKS.items():
+        for block, c_in, c_out, act_out in blocks:
+            mid = int(1.5 * c_in)
+            for conv, k, n, res, act, x_pad, pad in (
+                    ("ffn1.0", c_in, mid, False, True, 0, True), ("ffn1.2", mid, c_in, True, True, _padded(mid) - mid, False),
+                    ("pw", c_in, c_in, True, True, 0, False), ("ffn2.0", c_in, mid, False, True, 0, True),
+                    ("ffn2.2", mid, c_out, False, act_out, _padded(mid) - mid, False)):
+                key = (cell, m, k, n, res, act, x_pad, pad)
+                rows.setdefault(key, {"convs": [], "per_step": 0})
+                rows[key]["convs"].append(f"{block}.{conv}")
+                rows[key]["per_step"] += 1
+    return [(*key, v["convs"], v["per_step"]) for key, v in rows.items()]
+
+
+def pointwise_draw(g, dev, m, k, n, dtype, offset: int = 0, pad: int = 0):
+    """x [m, k] (starting `offset` elements into its buffer, rows k + pad
+    apart), a 1x1 conv's weight [n, k, 1, 1] at its init scale, a bias and a
+    residual [m, n] (rows n + pad apart), all of `dtype`."""
+    buf = torch.randn(m * (k + pad) + offset, generator=g, device=dev).to(dtype)
+    x = buf[offset:].view(m, k + pad)[:, :k]
+    wt = (torch.randn((n, k, 1, 1), generator=g, device=dev) / math.sqrt(k)).to(dtype)
+    bias = (torch.randn(n, generator=g, device=dev) * 0.1).to(dtype)
+    res = torch.randn((m, n + pad), generator=g, device=dev).to(dtype)[:, pad:]
+    return x, wt, bias, res
+
+
+def pointwise_compare(x, wt, bias, res, act: bool, pad: bool = False) -> float:
+    """K8 against its plain twin on the card within one rounding: both sum
+    the same products in f32 in other orders and round once, so they part
+    by at most one step of x's dtype (bf16: 2^-7 relative) beyond the sums'
+    own difference.  pad: the output's rows padded to 16 bytes, which must
+    show in its strides.  Returns the largest |kernel - twin|."""
+    from tpuflow_torch.kernels.pointwise import _padded, pointwise_gemm, pointwise_gemm_plain
+
+    got = pointwise_gemm(x, wt, bias, res, act=act, pad=pad)
+    torch.cuda.synchronize()
+    ref = pointwise_gemm_plain(x, wt, bias, res, act)
+    n = wt.shape[0]
+    shape = (f"x {tuple(x.shape)} strides {x.stride()} N {n} residual {res is not None} act {act} pad {pad} "
+             f"{x.dtype}")
+    if got.shape != ref.shape or got.stride(0) != (_padded(n) if pad else n):
+        raise AssertionError(f"pointwise {shape}: shape {tuple(got.shape)} strides {got.stride()}, "
+                             f"plain {tuple(ref.shape)}")
+    rtol = 2 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+    err = (got.float() - ref.float()).abs()
+    over = err > rtol * ref.float().abs() + (1e-3 if x.dtype == torch.bfloat16 else 1e-5)
+    if over.any() or not torch.isfinite(got).all():
+        raise AssertionError(f"pointwise {shape}: {int(over.sum())} entries off the plain twin, "
+                             f"largest {err.max().item():.3e}")
+    return err.max().item()
+
+
+def check_pointwise_ragged(g, dev) -> None:
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k, n, residual, act, offset, row_pad, pad in POINTWISE_RAGGED:
+            x, wt, bias, res = pointwise_draw(g, dev, m, k, n, dtype, offset, row_pad)
+            pointwise_compare(x, wt, bias, res if residual else None, act, pad)
+            n_checked += 1
+    log(f"pointwise ragged: {n_checked} shapes agree (bf16 and f32)")
+
+
+def check_pointwise(dev) -> dict:
+    """K8 on the ragged shapes, then at every (M, K, N, residual, act) of both
+    cells' SK blocks in bf16: against its plain twin, with its time, its
+    bound (the larger of the bytes, x, W, the bias and the residual read and
+    y written once, and the operations at the tensor cores' bf16 rate), the
+    plain twin's time and library_ms, F.linear, the add and the GELU on the
+    same tensors: a yardstick that the port never calls."""
+    import torch.nn.functional as F
+
+    from tpuflow_torch.core.encoders import gelu
+    from tpuflow_torch.kernels.pointwise import pointwise_gemm, pointwise_gemm_plain, tile_width
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    check_pointwise_ragged(g, dev)
+    shapes, frame = [], {cell: {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0}
+                         for cell in POINTWISE_BLOCKS}
+    for cell, m, k, n, residual, act, x_pad, pad, convs, per_step in pointwise_shapes():
+        x, wt, bias, res = pointwise_draw(g, dev, m, k, n, torch.bfloat16, pad=x_pad)
+        res = res.contiguous() if residual else None
+        err = pointwise_compare(x, wt, bias, res, act, pad)
+        w2 = wt.reshape(n, k)
+
+        def library():
+            y = F.linear(x, w2, bias)
+            y = y if res is None else res + y
+            return gelu(y) if act else y
+
+        ms = time_ms(lambda: pointwise_gemm(x, wt, bias, res, act=act, pad=pad), reps=20, queued=True)
+        plain_ms = time_ms(lambda: pointwise_gemm_plain(x, wt, bias, res, act), reps=3)
+        library_ms = time_ms(library, reps=10, queued=True)
+        ops_ms = 2 * m * k * n / BF16_FLOP_PER_S * 1e3
+        bytes_ms = 2 * (m * k + m * n * (2 if residual else 1) + n * k + n) / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        row = {"cell": cell, "convs": convs, "M": m, "K": k, "N": n, "residual": residual, "act": act,
+               "tile_n": tile_width(n), "ms": ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "ops_bound_ms": ops_ms,
+               "bytes_bound_ms": bytes_ms, "roofline_pct": 100 * bound_ms / ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "max_abs_err": err, "per_step": per_step}
+        log(f"pointwise {cell} {'/'.join(convs)} M {m} K {k} N {n} res {residual} act {act}: {ms:.4f} ms "
+            f"(bound {bound_ms:.4f} by {row['bound_by']}, {row['roofline_pct']:.1f} %), plain {plain_ms:.3f}, "
+            f"library {library_ms:.4f}, |err| {err:.3e}")
+        shapes.append(row)
+        for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            frame[cell][key] += 12 * per_step * row[key]
+        frame[cell]["launches"] += 12 * per_step
+        del x, wt, bias, res, w2
+    for cell, f in frame.items():
+        f["roofline_pct"] = 100 * f["bound_ms"] / f["ms"]
+        log(f"pointwise per {cell} frame (12 iterations): {json.dumps(f)}")
+    return {"name": "pointwise_gemm", "route": "cuda", "source": "tpuflow_torch/csrc/pointwise_gemm.cu",
+            "replaces": "no TPU kernel (the JAX package left PCBlock4's 1x1 convs to XLA)",
+            "shapes": shapes, "per_frame": frame}
+
+
 def check_volume_patch_far(dev) -> dict:
     """K4 and K6 on patches that read entries beyond element offset 2^31:
     one bf16 buffer of 9000 x 500 x 500 entries (4.5 GB) read as a flat
@@ -1578,16 +1739,18 @@ SINGLE_TILE_HW = (480, 640)      # a clip that fits one tile
 
 
 # PCBlock4s in one step of either SK update block (convc1, convc2, convf2,
-# conv, gru, flow_head): K7 launches once for each, the k = 1 entries folded in.
+# conv, gru, flow_head): K7 launches once for each, the k = 1 entries folded
+# in, and K8 once for each of its five 1x1 convs.
 PCBLOCKS_PER_STEP = 6
 
 
 def expected_launches(kernels, steps: int, **counts) -> dict:
-    """Each kernel's launches: K7 once per PCBlock4 of each of `steps`
-    update-block steps (one step serves a batch of windows, tiles or a
-    strip), `counts` for the others named, none for the rest."""
+    """Each kernel's launches: K7 once and K8 five times per PCBlock4 of
+    each of `steps` update-block steps (one step serves a batch of windows,
+    tiles or a strip), `counts` for the others named, none for the rest."""
     want = dict.fromkeys(kernels, 0)
     want["depthwise_residual_gelu"] = PCBLOCKS_PER_STEP * steps
+    want["pointwise_gemm"] = POINTWISE_PER_PCBLOCK * PCBLOCKS_PER_STEP * steps
     want.update(counts)
     return want
 
@@ -2030,7 +2193,7 @@ CHECKED_ARG = "--checked-build"
 
 def phase_checked_start():
     """Starts this script in a child process with CHECKED_ARG (main_checked):
-    the bounds-checked build of every kernel, each of the seven wrappers on its
+    the bounds-checked build of every kernel, each of the eight wrappers on its
     ragged and plane-edge shapes.  A trap poisons the CUDA context, hence the
     process of its own.  Returns the child, for phase_checked_wait."""
     from pathlib import Path
@@ -2087,6 +2250,7 @@ def main_checked() -> int:
     for layout in ("flat", "band"):
         check_volume_patch_ragged(torch.Generator(device=dev).manual_seed(SEED + 4), dev, layout)
     check_depthwise_ragged(torch.Generator(device=dev).manual_seed(SEED + 40), dev)
+    check_pointwise_ragged(torch.Generator(device=dev).manual_seed(SEED + 41), dev)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     if min(launches.values()) < 1:
@@ -3597,17 +3761,18 @@ def phase_train(kernels, dev) -> dict:
 
 
 def kernel_counters() -> dict:
-    """The seven kernels' wrappers by name; each counts its launches."""
+    """The eight kernels' wrappers by name; each counts its launches."""
     from tpuflow_torch.kernels.bandlookup import band_patch_level
     from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
     from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd
     from tpuflow_torch.kernels.flashcorr import flash_patch_level
     from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
+    from tpuflow_torch.kernels.pointwise import pointwise_gemm
 
     return {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
                                        dense_patch_level, flash_patch_level, band_patch_level,
-                                       depthwise_residual_gelu)}
+                                       depthwise_residual_gelu, pointwise_gemm)}
 
 
 def main() -> int:
@@ -3641,6 +3806,7 @@ def main() -> int:
     ]
     far = check_volume_patch_far(dev)
     depthwise = check_depthwise(dev)
+    pointwise = check_pointwise(dev)
     for row in rows:
         if row["name"] in ("dense_patch_level", "band_patch_level"):
             row["farthest_entry_checked"] = far["flat" if row["name"] == "dense_patch_level" else "band"]
@@ -3685,8 +3851,9 @@ def main() -> int:
         "flash_patch_level": forms["flash"]["launches"],
         "band_patch_level": forms["band"]["launches"],
         "depthwise_residual_gelu": memflow["launches"],
+        "pointwise_gemm": memflow["launches"],
     }
-    rows.append(depthwise)
+    rows += [depthwise, pointwise]
     for row in rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
         if row["launches"] < 1:

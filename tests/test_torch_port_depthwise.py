@@ -135,7 +135,7 @@ def test_wrapper_rejects_bad_inputs(call):
 # PCBlock4's paths
 # ---------------------------------------------------------------------------
 def old_pcblock4(block, x):
-    """PCBlock4.forward as it was composed before K7."""
+    """PCBlock4.forward as it was composed before K7 and K8, on NCHW x."""
     x = gelu(x + block.ffn1[2](gelu(block.ffn1[0](x))))
     for conv in block.conv_list:
         x = gelu(x + conv(x))
@@ -150,12 +150,13 @@ def pcblock4(k_conv, seed=0):
 
 @pytest.mark.parametrize("k_conv", [(1, 15), (1, 7), (15,), (1,), (7, 1, 15)])
 def test_pcblock4_matches_the_old_composition(k_conv):
-    """Inference (no grad): the entry's plain twin on the CPU, with each
-    k = 1 entry before a k > 1 one folded in."""
+    """Inference (no grad): the entries' plain twins on the CPU, on NHWC x,
+    with each k = 1 entry before a k > 1 one folded in."""
     block = pcblock4(k_conv)
-    x = torch.randn(2, 12, 10, 9).contiguous(memory_format=torch.channels_last)
+    x = torch.randn(2, 10, 9, 12)
     with torch.no_grad():
-        torch.testing.assert_close(block(x), old_pcblock4(block, x), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(block(x), nchw_to_nhwc(old_pcblock4(block, nhwc_to_nchw(x))),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_pcblock4_gradient_path_takes_the_plain_twin():
@@ -164,10 +165,10 @@ def test_pcblock4_gradient_path_takes_the_plain_twin():
     gives the old module's gradients, for the parameters and the input."""
     block = pcblock4((1, 15), seed=1)
     g = torch.Generator().manual_seed(2)
-    x0 = torch.randn(2, 12, 10, 9, generator=g)
-    probe = torch.randn(2, 8, 10, 9, generator=g)
+    x0 = torch.randn(2, 10, 9, 12, generator=g)
+    probe = torch.randn(2, 10, 9, 8, generator=g)
     grads = []
-    for forward in (block, lambda x: old_pcblock4(block, x)):
+    for forward in (block, lambda x: nchw_to_nhwc(old_pcblock4(block, nhwc_to_nchw(x)))):
         block.zero_grad()
         x = x0.clone().requires_grad_()
         (forward(x) * probe).sum().backward()
@@ -203,7 +204,7 @@ def test_pcblock4_picks_the_entry_or_the_twin(monkeypatch, grad):
         monkeypatch.setattr(dw, name, outermost(name, getattr(dw, name)))
     block = pcblock4((1, 15, 1, 7), seed=3)
     with torch.set_grad_enabled(grad):
-        out = block(torch.randn(1, 12, 6, 7))
+        out = block(torch.randn(1, 6, 7, 12))
     forward = [("depthwise_residual_gelu_plain", False)] * 2     # inside the Function: no graph
     assert calls == forward
     if grad:

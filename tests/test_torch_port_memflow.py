@@ -262,8 +262,7 @@ def test_sk_motion_encoder_mem_matches_jax(models):
     enc = SKMotionEncoderMem(CFG["corr_levels"], CFG["corr_radius"], (1, 15)).eval()
     enc.load_state_dict(port.update_block.encoder.state_dict(), strict=True)
     with torch.no_grad():
-        got = enc(*(torch.from_numpy(x[n]).permute(0, 3, 1, 2) for n in ("flow", "corr", "mem_read")))
-    got = got.permute(0, 2, 3, 1).numpy()
+        got = enc(*(torch.from_numpy(x[n]) for n in ("flow", "corr", "mem_read"))).numpy()
     assert got.shape == (1, H8, W8, 128)
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 

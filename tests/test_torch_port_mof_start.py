@@ -59,8 +59,8 @@ def zero_start(model):
 
     def forward(flow, mhs, corr, bs):
         if mhs is None:
-            bn, _, h, w = flow.shape
-            mhs = torch.zeros((bs, bn // bs, enc.hidden_ch, h, w), dtype=corr.dtype)
+            bn, h, w, _ = flow.shape
+            mhs = torch.zeros((bs, bn // bs, h, w, enc.hidden_ch), dtype=corr.dtype)
         return orig(flow, mhs, corr, bs)
 
     enc.forward = forward

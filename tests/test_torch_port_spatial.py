@@ -316,8 +316,8 @@ MODULE_CASES = {
     "same_conv_1x1_s2": (lambda: _module(SameConv2d, 8, 8, 1, 2), [_rand(2, 8, 16, 12)], [(2, 2)], 2),
     "group_norm_instance": (lambda: _module(GroupNorm, 8, 8), [_rand(2, 8, 32, 24) + 3], [(2, 4)], 2),
     "group_norm_batch": (lambda: _module(GroupNorm, 1, 8), [_rand(2, 8, 16, 12) * 2], [(2, 2)], 2),
-    "pcblock4_15x15": (lambda: _module(PCBlock4, 16, 8, (1, 15)), [_rand(2, 16, 8, 6)], [(2, 1)], 2),
-    "pcblock4_gru_7x7": (lambda: _module(PCBlock4, 16, 8, (1, 7)), [_rand(2, 16, 8, 6)], [(2, 1)], 2),
+    "pcblock4_15x15": (lambda: _module(PCBlock4, 16, 8, (1, 15)), [_rand(2, 8, 6, 16)], [(1, 1)], 1),
+    "pcblock4_gru_7x7": (lambda: _module(PCBlock4, 16, 8, (1, 7)), [_rand(2, 8, 6, 16)], [(1, 1)], 1),
     "mask_head": (lambda: _module(SKUpdateBlockMOF, 2, 2, 32, context_dim=32).upsample_mask,
                   [_rand(2, 8, 6, 32)], [(1, 1)], 1),
     "convex_upsample": (lambda: upsample_flow_convex, [_rand(2, 8, 6, 2) * 3, _rand(2, 8, 6, 576, seed=1)],

@@ -2,14 +2,18 @@
 VideoFlow MOF's SKMotionEncoder6_Deep_nopool_res and
 SKUpdateBlock6_Deep_nopoolres_AllDecoder2, and MemFlow's two-frame
 SKMotionEncoderMem and SKUpdateBlockMem, under their upstream state-dict
-names.  Public tensors are NHWC; the convs run on NCHW views of them.
+names.  Tensors are NHWC throughout: the PCBlocks, both motion encoders
+and both steps concatenate and split on the last axis.
 
-PCBlock4's depthwise stages run through kernel K7
-(kernels/depthwise.py), one launch for each k > 1 entry with the k = 1
-entry before it folded in.  In a spatially sharded call (core/strips.py)
-those stages (15x15: a 7-row halo; 7x7 in the 'gru': 3 rows) and the mask
-head's 3x3 fetch their halos; every other conv is 1x1, and the motion
-hidden state shifts across interior frames, not rows.
+PCBlock4's 1x1 convs run through kernel K8 (kernels/pointwise.py), a GEMM
+on the NHWC rows with the bias, the residual add and the GELU in its
+epilogue: five launches a block.  Its depthwise stages run through kernel
+K7 (kernels/depthwise.py), one launch for each k > 1 entry with the k = 1
+entry before it folded in.  Only the mask head's convs run on NCHW views.
+In a spatially sharded call (core/strips.py) the depthwise stages (15x15:
+a 7-row halo; 7x7 in the 'gru': 3 rows) and the mask head's 3x3 fetch
+their halos; every other conv is 1x1, and the motion hidden state shifts
+across interior frames, not rows.
 """
 
 from __future__ import annotations
@@ -18,11 +22,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..kernels.depthwise import depthwise_stage
+from ..kernels.pointwise import pointwise_stage
 from ..runtime.profiling import span
 from . import strips
-from .encoders import gelu
 from .gma import Aggregate
 
 
@@ -34,8 +39,21 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv outside the PCBlocks (a motion encoder's flow input, 4 or
+    2 channels) on NHWC x, as a plain product."""
+    return F.linear(x, conv.weight.flatten(1), conv.bias)
+
+
+def pointwise(conv: nn.Conv2d, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+              act: bool = False, pad: bool = False) -> torch.Tensor:
+    """act(residual + conv(x)) for a 1x1 conv on NHWC x: one K8 launch (pad:
+    the output's rows padded for the next launch, kernels/pointwise.py)."""
+    return pointwise_stage(x, conv.weight, conv.bias, residual, act=act, pad=pad)
+
+
 class PCBlock4(nn.Module):
-    """`PCBlock4_Deep_nopool_res` (NCHW): residual 1.5x FFN -> residual
+    """`PCBlock4_Deep_nopool_res` (NHWC): residual 1.5x FFN -> residual
     depthwise super-kernels (k in k_conv) -> residual pointwise -> output
     FFN, GELU after every residual add."""
 
@@ -50,11 +68,11 @@ class PCBlock4(nn.Module):
         self.ffn2 = nn.Sequential(nn.Conv2d(c_in, mid, 1), nn.GELU(), nn.Conv2d(mid, c_out, 1))
 
     def depthwise_stages(self, x: torch.Tensor) -> torch.Tensor:
-        """x = gelu(x + conv(x)) for each conv_list entry, on NCHW x: one
+        """x = gelu(x + conv(x)) for each conv_list entry, on NHWC x: one
         K7 stage per k > 1 entry, a k = 1 entry before it folded in as the
         stage's prologue (the kernel on the card in every grad mode; a
         backward runs through its plain twin)."""
-        xh = nchw_to_nhwc(x)
+        xh = x
         pre = None
         for j, conv in enumerate(self.conv_list):
             k = conv.kernel_size[0]
@@ -65,19 +83,21 @@ class PCBlock4(nn.Module):
             xh = depthwise_stage(rows, conv.weight, conv.bias, None if pre is None else pre.weight,
                                  None if pre is None else pre.bias, pads=pads)
             pre = None
-        return nhwc_to_nchw(xh)
+        return xh
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = gelu(x + self.ffn1[2](gelu(self.ffn1[0](x))))
+    def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
+        """NHWC x [..., c_in] -> [..., c_out]; act: GELU on the output too,
+        folded into the last launch (the motion encoders' gelu(convc1))."""
+        x = pointwise(self.ffn1[2], pointwise(self.ffn1[0], x, act=True, pad=True), x, act=True)
         x = self.depthwise_stages(x)
-        x = gelu(x + self.pw(x))
-        return self.ffn2[2](gelu(self.ffn2[0](x)))
+        x = pointwise(self.pw, x, x, act=True)      # a new tensor: the output never aliases x
+        return pointwise(self.ffn2[2], pointwise(self.ffn2[0], x, act=True, pad=True), act=act)
 
 
 class SKMotionEncoderMOF(nn.Module):
     """`SKMotionEncoder6_Deep_nopool_res`: bidirectional correlation lookup
     + 4-channel flow + the 48-channel motion hidden states of the
-    neighbouring interior frames -> 128-channel motion features (NCHW)."""
+    neighbouring interior frames -> 128-channel motion features (NHWC)."""
 
     def __init__(self, corr_levels: int, corr_radius: int, k_conv: Sequence[int], hidden_ch: int = 48):
         super().__init__()
@@ -93,25 +113,31 @@ class SKMotionEncoderMOF(nn.Module):
     def forward(
         self, flow: torch.Tensor, mhs: Optional[torch.Tensor], corr: torch.Tensor, bs: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """flow [B*N, 4, h, w], corr [B*N, cor_planes, h, w], mhs
-        [B, N, 48, h, w] or None (the learned init) -> (motion features
-        [B*N, 128, h, w], new mhs [B, N, 48, h, w])."""
-        bn, _, h, w = flow.shape
+        """flow [B*N, h, w, 4], corr [B*N, h, w, cor_planes], mhs
+        [B, N, h, w, 48] or None (the learned init) -> (motion features
+        [B*N, h, w, 128], new mhs [B, N, h, w, 48])."""
+        bn, h, w, _ = flow.shape
         n = bn // bs
         hc = self.hidden_ch
         if mhs is None:
-            mhs = self.init_hidden_state.to(corr.dtype).expand(bs, n, hc, h, w)
-        zeros = torch.zeros((bs, 1, hc, h, w), dtype=mhs.dtype, device=mhs.device)
-        fwd_mhs = torch.cat([mhs[:, 1:], zeros], dim=1).reshape(bn, hc, h, w)
-        bwd_mhs = torch.cat([zeros, mhs[:, :-1]], dim=1).reshape(bn, hc, h, w)
-        cur_mhs = mhs.reshape(bn, hc, h, w)
+            mhs = self.init_hidden_state.to(corr.dtype).reshape(1, 1, 1, 1, hc).expand(bs, n, h, w, hc)
+        zeros = torch.zeros((bs, 1, h, w, hc), dtype=mhs.dtype, device=mhs.device)
+        fwd_mhs = torch.cat([mhs[:, 1:], zeros], dim=1).reshape(bn, h, w, hc)
+        bwd_mhs = torch.cat([zeros, mhs[:, :-1]], dim=1).reshape(bn, h, w, hc)
+        cur_mhs = mhs.reshape(bn, h, w, hc)
 
-        cor = self.convc2(gelu(self.convc1(corr)))
+        cor = self.convc2(self.convc1(corr, act=True))
         flow = flow.to(corr.dtype)
-        flo = self.convf2(self.convf1_(flow))
-        out = self.conv(torch.cat([cor, flo, fwd_mhs, bwd_mhs, cur_mhs], dim=1))
-        motion, new_mhs = torch.split(out, [128 - 4, hc], dim=1)
-        return torch.cat([motion, flow], dim=1), new_mhs.reshape(bs, n, hc, h, w)
+        flo = self.convf2(conv1x1(self.convf1_, flow))
+        x = torch.cat([cor, flo, fwd_mhs, bwd_mhs, cur_mhs], dim=-1)
+        if x.device.type == "cpu":
+            # Channel-major, as the former NCHW composition held it: CPU
+            # kernels round by layout (GELU's vector tails), and f32 results
+            # then stay that code's bit for bit.  The card reads NHWC rows.
+            x = nchw_to_nhwc(nhwc_to_nchw(x).contiguous())
+        out = self.conv(x)
+        motion, new_mhs = torch.split(out, [128 - 4, hc], dim=-1)
+        return torch.cat([motion, flow], dim=-1), new_mhs.reshape(bs, n, h, w, hc)
 
 
 class SKUpdateBlockMOF(nn.Module):
@@ -151,18 +177,10 @@ class SKUpdateBlockMOF(nn.Module):
         [B*N, h, w, 4] f32, q/k [B*N, h, w, 128], mhs [B, N, h, w, 48] or
         None, attn [B*N, hw, hw] materialized GMA probabilities or None ->
         (net, mhs, delta_flow)."""
-        motion, mhs = self.encoder(
-            nhwc_to_nchw(flow),
-            None if mhs is None else mhs.permute(0, 1, 4, 2, 3),
-            nhwc_to_nchw(corr),
-            bs,
-        )
-        motion = nchw_to_nhwc(motion)
+        motion, mhs = self.encoder(flow, mhs, corr, bs)
         motion_global = self.aggregator(q, k, motion, attn)
-        x = torch.cat([net, inp, motion, motion_global], dim=-1)
-        net = nchw_to_nhwc(self.gru(nhwc_to_nchw(x)))
-        delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))
-        return net, mhs.permute(0, 1, 3, 4, 2), delta
+        net = self.gru(torch.cat([net, inp, motion, motion_global], dim=-1))
+        return net, mhs, self.flow_head(net)
 
     @span("tpuflow.sk.update")
     def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
@@ -180,7 +198,7 @@ class SKUpdateBlockMOF(nn.Module):
 class SKMotionEncoderMem(nn.Module):
     """MemFlow's two-frame motion encoder: the correlation lookup, the
     2-channel flow and the memory readout -> 128-channel motion features
-    (NCHW)."""
+    (NHWC)."""
 
     def __init__(self, corr_levels: int, corr_radius: int, k_conv: Sequence[int], value_dim: int = 128):
         super().__init__()
@@ -192,13 +210,13 @@ class SKMotionEncoderMem(nn.Module):
         self.conv = PCBlock4(192 + 64 + value_dim, 128 - 2, k_conv)
 
     def forward(self, flow: torch.Tensor, corr: torch.Tensor, mem_read: torch.Tensor) -> torch.Tensor:
-        """flow [B, 2, h, w], corr [B, cor_planes, h, w], mem_read [B, 128,
-        h, w] -> [B, 128, h, w]."""
-        cor = self.convc2(gelu(self.convc1(corr)))
+        """flow [B, h, w, 2], corr [B, h, w, cor_planes], mem_read [B, h, w,
+        128] -> [B, h, w, 128]."""
+        cor = self.convc2(self.convc1(corr, act=True))
         flow = flow.to(corr.dtype)
-        flo = self.convf2(self.convf1_(flow))
-        out = self.conv(torch.cat([cor, flo, mem_read], dim=1))
-        return torch.cat([out, flow], dim=1)
+        flo = self.convf2(conv1x1(self.convf1_, flow))
+        out = self.conv(torch.cat([cor, flo, mem_read], dim=-1))
+        return torch.cat([out, flow], dim=-1)
 
 
 class SKUpdateBlockMem(nn.Module):
@@ -232,12 +250,10 @@ class SKUpdateBlockMem(nn.Module):
         inp [B, h, w, 128], corr [B, h, w, L*(2r+1)^2], flow [B, h, w, 2]
         f32, q/k [B, h, w, 128], mem_read [B, h, w, 128], attn [B, hw, hw]
         or None (kernel K2) -> (net, motion, delta_flow)."""
-        motion = nchw_to_nhwc(self.encoder(nhwc_to_nchw(flow), nhwc_to_nchw(corr), nhwc_to_nchw(mem_read)))
+        motion = self.encoder(flow, corr, mem_read)
         motion_global = self.aggregator(q, k, motion, attn)
-        x = torch.cat([net, inp, motion, motion_global], dim=-1)
-        net = nchw_to_nhwc(self.gru(nhwc_to_nchw(x)))
-        delta = nchw_to_nhwc(self.flow_head(nhwc_to_nchw(net)))
-        return net, motion, delta
+        net = self.gru(torch.cat([net, inp, motion, motion_global], dim=-1))
+        return net, motion, self.flow_head(net)
 
     @span("tpuflow.sk.update")
     def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:

@@ -14,4 +14,6 @@ K5 flashcorr.flash_patch_level     csrc/corr_patch.cu   (K3's function)
 K6 bandlookup.band_patch_level     csrc/volume_patch.cu (K4's function)
 K7 depthwise.depthwise_residual_gelu  csrc/depthwise.cu (no TPU kernel:
    PCBlock4's depthwise stages, which the JAX package left to XLA)
+K8 pointwise.pointwise_gemm        csrc/pointwise_gemm.cu (no TPU kernel:
+   PCBlock4's 1x1 convs with their adds and GELUs, left to XLA there too)
 """
