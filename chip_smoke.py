@@ -59,8 +59,7 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    epilogue, concat).
 8. window batching: compute_flows_tiled_stride1 on four 1920x1080 frames
    with window_batch 1, 2 and 8 (clamped to what the card's free memory
-   holds), the flows held to each other; then the pair-cached loop
-   (TPUFLOW_STRIDE1=pairs) on the same clip against the trio loop.
+   holds), the flows held to each other.
 9. 4K: one 3840x2160 frame through compute_flow_tiled with tile_batch 4 (six
    1080x1280 tiles in chunks of 4 and 2) and 6, held to each other.
 10. single tile: a 640x480 clip through compute_flow_tiled and
@@ -1733,7 +1732,7 @@ def phase_formulations(engine, kernels) -> dict:
 SMALL_CLIP = (5, 128, 256)       # frames, H, W of the every-entry-point runs: two tiles at tile_size 128
 BOF_FRAMES = 6                   # 1080p frames of the BOF tiled run
 CNN_FRAMES = 4                   # 1080p frames of the cnn tiled run
-BATCH_FRAMES = 4                 # 1080p frames of the window-batch and pairs runs
+BATCH_FRAMES = 4                 # 1080p frames of the window-batch runs
 UHD_H, UHD_W = 2160, 3840
 SINGLE_TILE_HW = (480, 640)      # a clip that fits one tile
 
@@ -1892,7 +1891,7 @@ def phase_window_batch(engine, kernels) -> dict:
     other as two bf16 runs (another batch may take another cuDNN algorithm;
     whether they are bit-equal is logged), then window_batch=8, which the
     clamp cuts to what the card's free memory holds (logged), against the
-    same flows.  Returns the timings, the peaks and window_batch=1's flows."""
+    same flows.  Returns the timings and the peaks."""
     from tpuflow_torch.config import TILE_SIZE
 
     cfg = engine.config
@@ -1921,33 +1920,6 @@ def phase_window_batch(engine, kernels) -> dict:
         torch.cuda.empty_cache()
     if out["wb8"]["runs_as"] >= 8:
         raise AssertionError("window_batch=8 was not clamped on this card")
-    return out, frames, flows[1], out["wb1"]["wall_s"]
-
-
-def phase_pairs(engine, kernels, frames, trio_flows, trio_wall: float) -> dict:
-    """TPUFLOW_STRIDE1=pairs: the pair-cached loop on phase_window_batch's
-    clip, one warm-up call, then timed; its flows against the trio loop's
-    (window_batch=1) as two bf16 runs.  Each window's lookups run per pair:
-    T-2 K1 launches per direction and iteration."""
-    import os
-
-    cfg = engine.config
-    n, depth = len(frames), cfg.decoder_depth
-    os.environ["TPUFLOW_STRIDE1"] = "pairs"
-    try:
-        engine.compute_flows_tiled_stride1(frames[:2])             # warm-up
-        flows, wall, peak, launches = tiled_run(engine, kernels, frames)
-    finally:
-        del os.environ["TPUFLOW_STRIDE1"]
-    want = expected_launches(kernels, steps=n * depth, dense_lookup=n * 2 * (cfg.sequence_length - 2) * depth,
-                             flash_attention_fwd=n * depth)
-    if launches != want:
-        raise AssertionError(f"pairs: kernel launches {launches}, expected {want}")
-    log(f"pairs loop: {n} frames in {wall:.3f} s = {n / wall:.4f} frames/s (trio {n / trio_wall:.4f} in this "
-        f"call), peak {peak:.2f} GiB, launches {launches}")
-    out = {"frames_per_s": n / wall, "trio_frames_per_s": n / trio_wall, "wall_s": wall, "peak_gib": peak,
-           "launches": launches, "bit_equal_to_trio": bool(np.array_equal(flows, trio_flows))}
-    out.update(check_flows_agree("pairs loop vs trio", flows, trio_flows))
     return out
 
 
@@ -3822,9 +3794,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     forms = phase_formulations(engine, kernels)
     torch.cuda.empty_cache()
-    batching, clip, trio_flows, trio_wall = phase_window_batch(engine, kernels)
-    pairs = phase_pairs(engine, kernels, clip, trio_flows, trio_wall)
-    del clip, trio_flows
+    batching = phase_window_batch(engine, kernels)
     torch.cuda.empty_cache()
     uhd = phase_uhd(engine, kernels)
     single = phase_single_tile(engine)
@@ -3867,7 +3837,7 @@ def main() -> int:
         row["checked_build_launches"] = checked["launches"][row["name"]]
     log(json.dumps({"end_to_end": {k: v for k, v in e2e.items() if k != "launches"},
                     "untiled": untiled, "strided": strided, "formulations": forms,
-                    "window_batch": batching, "pairs": pairs, "uhd": uhd, "single_tile": single,
+                    "window_batch": batching, "uhd": uhd, "single_tile": single,
                     "bof": bof, "cnn": cnn, "memflow": memflow, "checked_build": checked,
                     "parity_rel_err": parity, "pipeline": pipeline, "correction": correction,
                     "data_parallel": dp, "spatial": spatial, "checkpoint": ckpt, "distributed": distributed, "train": train}))

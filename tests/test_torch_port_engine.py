@@ -1,6 +1,7 @@
 """The port's stride-1 and tile batching against the JAX engine on the CPU:
-`compute_flow_tiled(tile_batch=)`, `compute_flows_tiled_stride1(
-window_batch=)` and the pair-cached loop (`TPUFLOW_STRIDE1=pairs`).
+`compute_flow_tiled(tile_batch=)` and `compute_flows_tiled_stride1(
+window_batch=)`, also against the JAX engine's pair-cached loop, which the
+port does not have.
 
 Weights are one random flax MOFNet param tree (Twins, 2 levels, radius 2,
 2 iterations), drawn with numpy from a seed and carried into the port by
@@ -94,18 +95,15 @@ def test_window_batch_matches_jax(tiled_engines):
 
 
 def test_pairs_loop_matches_trio_and_jax(tiled_engines, monkeypatch):
-    """TPUFLOW_STRIDE1=pairs: each frame pair's correlation built once and
-    looked up per pair (MOFNet.refine_pairs), against the port's trio loop
-    and the JAX engine's pairs loop."""
+    """The port has one stride-1 loop: under TPUFLOW_STRIDE1=pairs it gives
+    exactly what it gives without the variable, and the model has no
+    per-pair refinement.  The JAX engine still runs its pair-cached loop
+    under the variable (each frame pair's correlation built once), a second
+    formulation of the same flows, which the port's flows match."""
     jeng, eng, clip = tiled_engines
     trio = eng.compute_flows_tiled_stride1(clip, tile_size=96)
     monkeypatch.setenv("TPUFLOW_STRIDE1", "pairs")
-    calls = []
-    refine_pairs = eng.model.refine_pairs
-    monkeypatch.setattr(eng.model, "refine_pairs", lambda *a: calls.append(1) or refine_pairs(*a))
-    pairs = eng.compute_flows_tiled_stride1(clip, tile_size=96)
-    assert len(calls) == len(clip)                 # one refinement per window, one shape group
-    # As test_window_batch_matches_jax: batches of other sizes.
-    np.testing.assert_allclose(pairs, trio, rtol=0, atol=1e-5 * np.abs(trio).max())
+    np.testing.assert_array_equal(eng.compute_flows_tiled_stride1(clip, tile_size=96), trio)
+    assert not hasattr(eng.model, "refine_pairs")
     ref = jeng.compute_flows_tiled_stride1(clip, tile_size=96)
-    np.testing.assert_allclose(pairs, ref, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(trio, ref, rtol=2e-3, atol=2e-3)

@@ -1,6 +1,7 @@
 """The parts of core/corr.py that no model path reads, against the JAX
 package on the CPU: CorrPyramid.lookup_span and lookup_rows, the
-border='clamp' lookups and the TPUFLOW_DENSE_LOOKUP override.
+border='clamp' lookups, and a dense lookup's `impl`, which the JAX
+package's environment override does not reach in the port.
 
 f32 features and volumes on both sides.  Tolerances: the gather
 formulations equal the port's own lookup bit for bit and the JAX
@@ -114,23 +115,22 @@ def test_unknown_border_raises(maps):
             corr.make_corr(f1, f2, LEVELS, impl=impl).lookup(flow, 3, border="reflect")
 
 
-@pytest.mark.parametrize("env,same_as", [("pallas", "auto"), ("interpret", "auto"), ("patch", "patch"),
-                                         ("xla", "xla"), ("auto", "auto")])
-def test_dense_lookup_env_override(maps, monkeypatch, env, same_as):
-    """TPUFLOW_DENSE_LOOKUP beats the `impl` argument, as in the JAX package
-    (tpuflow/core/corr.py:597); its kernel names 'pallas' and 'interpret'
-    are the port's 'auto' (the fused K1).  Under 'xla' the port and the
-    JAX package's lookups agree."""
+@pytest.mark.parametrize("env", ["pallas", "interpret", "patch", "xla", "auto"])
+def test_dense_lookup_env_override(maps, monkeypatch, env):
+    """A dense lookup's mode is its `impl` argument alone: with the JAX
+    package's TPUFLOW_DENSE_LOOKUP set to any of its values, every `impl`
+    gives what it gives without the variable, and an unknown `impl` still
+    raises.  The 'xla' lookup stays the JAX package's XLA formulation."""
     f1, f2, flow = (torch.from_numpy(a) for a in maps)
     dense = corr.make_corr(f1, f2, LEVELS, impl="dense")
-    want = dense.lookup(flow, 3, impl=same_as)
+    want = {impl: dense.lookup(flow, 3, impl=impl) for impl in ("auto", "patch", "xla")}
     monkeypatch.setenv("TPUFLOW_DENSE_LOOKUP", env)
-    for impl in ("auto", "patch", "xla"):
-        assert torch.equal(dense.lookup(flow, 3, impl=impl), want)
+    for impl, out in want.items():
+        assert torch.equal(dense.lookup(flow, 3, impl=impl), out), impl
+    assert not torch.equal(want["auto"], want["patch"])    # f32 bilinear against the volume's dtype's
     if env == "xla":
         jd = JaxDense.build(*(jnp.asarray(a) for a in maps[:2]), LEVELS)
-        np.testing.assert_allclose(want.numpy(), np.asarray(jd.lookup(jnp.asarray(maps[2]), 3)), rtol=1e-5,
-                                   atol=1e-5)
-    monkeypatch.setenv("TPUFLOW_DENSE_LOOKUP", "onehot")
+        np.testing.assert_allclose(want["xla"].numpy(), np.asarray(jd.lookup(jnp.asarray(maps[2]), 3, impl="xla")),
+                                   rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="onehot"):
-        dense.lookup(flow, 3)
+        dense.lookup(flow, 3, impl="onehot")

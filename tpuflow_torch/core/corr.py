@@ -41,8 +41,7 @@ kernel indexes the plain layouts directly, so those layouts are not ported.
 from __future__ import annotations
 
 import math
-import os
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -55,9 +54,6 @@ from ..runtime.profiling import count
 MATERIALIZE_THRESHOLD = 168 * 168
 DENSE_LOOKUP_IMPLS = ("auto", "patch", "xla")
 BORDERS = ("zeros", "clamp")
-# The JAX package's kernel names for a dense lookup (TPUFLOW_DENSE_LOOKUP):
-# both are the fused kernel, the port's 'auto'.
-_JAX_KERNEL_NAMES = ("pallas", "interpret")
 
 
 def _check_border(border: str) -> None:
@@ -382,15 +378,10 @@ class DenseCorrPyramid:
         differentiable in the volumes and the flow.  Only the caller picks
         'xla' (the train step does); 'auto' never falls back to it.  K1's
         plain version is `dense_lookup_plain`, called directly by tests and
-        yardsticks, never from here.
-
-        The TPUFLOW_DENSE_LOOKUP environment variable, where set, beats
-        `impl` (the JAX package's sweep override, tpuflow/core/corr.py:597;
-        its kernel names 'pallas' and 'interpret' mean 'auto' here).  A
-        border='clamp' lookup under 'auto' takes 'patch': the fused kernel
-        zeroes its border, as the JAX package's does."""
-        env = os.environ.get("TPUFLOW_DENSE_LOOKUP")
-        mode = ("auto" if env in _JAX_KERNEL_NAMES else env) or impl or "auto"
+        yardsticks, never from here.  A border='clamp' lookup under 'auto'
+        takes 'patch': the fused kernel zeroes its border, as the JAX
+        package's does."""
+        mode = impl or "auto"
         if mode not in DENSE_LOOKUP_IMPLS:
             raise ValueError(f"dense_lookup {mode!r}: expected one of {DENSE_LOOKUP_IMPLS}")
         _check_border(border)
@@ -601,6 +592,9 @@ class BandCorrPyramid:
         return _patch_lookup(band_patch_levels, self.pyramid, dims, flow, radius, row0=self.row0, border=border)
 
 
+Corr = Union[CorrPyramid, DenseCorrPyramid, OnTheFlyCorr, FlashCorr, FlashCorr2, BandCorrPyramid]
+
+
 def make_corr(
     fmap1: torch.Tensor,
     fmap2: torch.Tensor,
@@ -608,7 +602,7 @@ def make_corr(
     impl: str = "auto",
     materialize_threshold: int = MATERIALIZE_THRESHOLD,
     row0: int = 0,
-):
+) -> Corr:
     """Pick the correlation formulation.  'auto' materializes the volume
     (DenseCorrPyramid, lookup cost independent of the flow) while the feature
     grid has at most `materialize_threshold` cells, and recomputes patches

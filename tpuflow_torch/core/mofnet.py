@@ -21,10 +21,6 @@ learned `init_hidden_state`, as upstream VideoFlow does (the motion encoder
 expands it at the first step).  The JAX package starts it at zeros
 (tpuflow/core/mofnet.py:482): the port departs from it there.
 
-The stride-1 engine's pair-cached loop builds each frame pair's
-correlation once (`pair_corr_state`) and refines from per-frame context and
-per-pair correlations (`refine_pairs`): the lookup then runs per interior
-frame on its own pair and re-interleaves in (window, interior) order.
 BOFNet is MOFNet under another name, run at the config's T (3: one
 interior frame).
 
@@ -39,14 +35,14 @@ in the strip's rows.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..runtime.profiling import span
 from . import strips
-from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
+from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, Corr, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
 from .gma import GMA_IMPLS, Attention, materialize_attention
 from .sk import SKUpdateBlockMOF
@@ -54,15 +50,16 @@ from .update import upsample_flow_convex
 
 
 class MOFEncoded(NamedTuple):
-    """What `refine` consumes: context, GMA q/k and both correlation
-    objects (anything with `.lookup(flow, radius)`)."""
+    """What `refine` consumes: context, GMA q/k and the two correlation
+    objects of `make_corr`, one per direction, each over the batch's B*N
+    interior frames."""
 
     inp: torch.Tensor        # [B*N, h, w, 128] context
     net: torch.Tensor        # [B*N, h, w, 128] initial hidden state
     q: torch.Tensor          # [B*N, h, w, 128]
     k: torch.Tensor          # [B*N, h, w, 128]
-    corr_fwd: Any            # one object, or a tuple of N per-pair objects
-    corr_bwd: Any
+    corr_fwd: Corr           # interior frame against its next frame
+    corr_bwd: Corr           # interior frame against its previous frame
     batch: int               # B: windows in the batch
 
 
@@ -177,30 +174,6 @@ class MOFNet(nn.Module):
             corr_bwd = make_corr(center, bwd_tgt, self.corr_levels, **kw)
         return MOFEncoded(inp, net, q, k, corr_fwd, corr_bwd, b)
 
-    @CORR_SPAN
-    def pair_corr_state(self, center: torch.Tensor, target: torch.Tensor):
-        """The correlation object of one (center, target) frame pair, each
-        [M, h, w, Cf]: it depends on the pair only, so the stride-1 loop
-        builds it once for every window the pair appears in."""
-        return make_corr(
-            center.to(self.corr_dtype), target.to(self.corr_dtype), self.corr_levels,
-            impl=self.corr_impl, materialize_threshold=self.materialize_threshold,
-        )
-
-    def refine_pairs(self, prepared: Sequence, corr_fwd: Sequence, corr_bwd: Sequence):
-        """`refine` from per-frame prepared context (N interior frames of
-        (net, inp, q, k) as `prepare_context` returns them, each [M, h, w,
-        .]) and per-pair correlation objects (N per direction).  The context
-        stacks in (window, interior) order, as encode_from_features
-        reshapes it."""
-        n, m = len(prepared), prepared[0][0].shape[0]
-
-        def stack(i):
-            return torch.stack([p[i] for p in prepared], dim=1).reshape(m * n, *prepared[0][i].shape[1:])
-
-        enc = MOFEncoded(stack(1), stack(0), stack(2), stack(3), tuple(corr_fwd), tuple(corr_bwd), m)
-        return self.refine(enc)
-
     @span("tpuflow.mof.encode")
     def encode(self, frames: torch.Tensor) -> MOFEncoded:
         """frames [B, T, H, W, 3] in [0, 1] -> the encoded window state (cnet
@@ -218,13 +191,6 @@ class MOFNet(nn.Module):
         return self.encode_from_features(feats, torch.cat([pad, ctx_i, pad], dim=1))
 
     def _lookup(self, corr, flow: torch.Tensor) -> torch.Tensor:
-        if isinstance(corr, tuple):
-            # Per-pair objects: interior j's queries go to pair j, and the
-            # features re-interleave to the (window, interior) batch order.
-            bn, h8, w8, _ = flow.shape
-            f = flow.reshape(bn // len(corr), len(corr), h8, w8, 2)
-            outs = [self._lookup(c, f[:, j].contiguous()) for j, c in enumerate(corr)]
-            return torch.stack(outs, dim=1).reshape(bn, h8, w8, -1)
         if isinstance(corr, DenseCorrPyramid):
             return corr.lookup(flow, self.corr_radius, impl=self.dense_lookup)
         return corr.lookup(flow, self.corr_radius)

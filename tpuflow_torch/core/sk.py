@@ -45,13 +45,6 @@ def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, conv.weight.flatten(1), conv.bias)
 
 
-def pointwise(conv: nn.Conv2d, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-              act: bool = False, pad: bool = False) -> torch.Tensor:
-    """act(residual + conv(x)) for a 1x1 conv on NHWC x: one K8 launch (pad:
-    the output's rows padded for the next launch, kernels/pointwise.py)."""
-    return pointwise_stage(x, conv.weight, conv.bias, residual, act=act, pad=pad)
-
-
 class PCBlock4(nn.Module):
     """`PCBlock4_Deep_nopool_res` (NHWC): residual 1.5x FFN -> residual
     depthwise super-kernels (k in k_conv) -> residual pointwise -> output
@@ -87,11 +80,16 @@ class PCBlock4(nn.Module):
 
     def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
         """NHWC x [..., c_in] -> [..., c_out]; act: GELU on the output too,
-        folded into the last launch (the motion encoders' gelu(convc1))."""
-        x = pointwise(self.ffn1[2], pointwise(self.ffn1[0], x, act=True, pad=True), x, act=True)
+        folded into the last launch (the motion encoders' gelu(convc1)).
+        Each 1x1 conv is one K8 launch; pad: the output's rows padded for
+        the next launch (kernels/pointwise.py)."""
+        f1, f2 = self.ffn1, self.ffn2
+        x = pointwise_stage(pointwise_stage(x, f1[0].weight, f1[0].bias, act=True, pad=True),
+                            f1[2].weight, f1[2].bias, x, act=True)
         x = self.depthwise_stages(x)
-        x = pointwise(self.pw, x, x, act=True)      # a new tensor: the output never aliases x
-        return pointwise(self.ffn2[2], pointwise(self.ffn2[0], x, act=True, pad=True), act=act)
+        x = pointwise_stage(x, self.pw.weight, self.pw.bias, x, act=True)   # a new tensor: never aliases x
+        return pointwise_stage(pointwise_stage(x, f2[0].weight, f2[0].bias, act=True, pad=True),
+                               f2[2].weight, f2[2].bias, act=act)
 
 
 class SKMotionEncoderMOF(nn.Module):

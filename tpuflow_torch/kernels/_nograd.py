@@ -1,4 +1,5 @@
-"""Kernel entries that refuse a gradient instead of dropping it.
+"""Kernel entries that refuse a gradient instead of dropping it, and the
+stages that recompute one through their plain twin.
 
 A kernel fills a `torch.empty` output through ctypes, so its result would
 carry no `grad_fn` and a backward through it would silently stop there.
@@ -8,6 +9,10 @@ step runs the plain formulations.  `refuses_gradient` wraps an entry in an
 autograd Function on every device, around the plain version too, wherever
 autograd would record the call: the forward runs as before, and a backward
 through its result raises and names the differentiable formulations.
+
+A kernel with no TPU counterpart (K7, K8) runs in the train step too:
+`recomputes_gradient` runs it forward and differentiates its plain twin,
+recomputed on the saved inputs, in the backward.
 """
 
 from __future__ import annotations
@@ -74,3 +79,37 @@ def refuses_gradient(fn):
         return list(out) if isinstance(out, tuple) else out
 
     return entry
+
+
+class _Recompute(torch.autograd.Function):
+    """Runs `run(*tensors)`; the backward recomputes `plain(*tensors)` on the
+    saved inputs and differentiates that."""
+
+    @staticmethod
+    def forward(ctx, run, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return run(*tensors)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            y = ctx.plain(*inputs)
+        grads = iter(torch.autograd.grad(y, wanted, grad))
+        return (None, None, *(next(grads) if t is not None and t.requires_grad else None for t in inputs))
+
+
+def recomputes_gradient(kernel, plain, *tensors):
+    """`kernel(*tensors)`, a kernel entry, on CUDA tensors, and `plain(*tensors)`,
+    its plain twin, on CPU tensors as they lie.  The tensors lie on the first
+    one's device; None stands for an absent input.  Where autograd records
+    the call (`needs_graph`), the backward recomputes `plain` on the saved
+    inputs and differentiates that, on either device."""
+    run = plain if tensors[0].device.type == "cpu" else kernel
+    if not needs_graph(tensors):
+        return run(*tensors)
+    return _Recompute.apply(run, plain, *tensors)

@@ -20,8 +20,8 @@ pads at the frame's edges (core/strips.depthwise_rows).
 `depthwise_residual_gelu` launches the kernel for CUDA tensors and runs
 `depthwise_residual_gelu_plain` for CPU tensors; like every kernel entry it
 refuses a gradient.  `depthwise_stage`, which PCBlock4 calls, is the same
-with a backward: the plain twin recomputed, since the JAX package
-differentiates these convolutions through XLA's own.
+with a backward: the plain twin recomputed (`_nograd.recomputes_gradient`),
+since the JAX package differentiates these convolutions through XLA's own.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, count_launch, library
-from ._nograd import needs_graph, refuses_gradient
+from ._nograd import recomputes_gradient, refuses_gradient
 
 KERNEL_SIZES = (1, 7, 15)   # the kernel's templates (csrc/depthwise.cu)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -157,36 +157,6 @@ def depthwise_residual_gelu(
     return out
 
 
-def _stage_forward(x, weight, bias, pre_weight, pre_bias, pads) -> torch.Tensor:
-    if x.device.type == "cpu":          # the twin on x as it lies, as the backward recomputes it
-        _check(x, weight, bias, pre_weight, pre_bias, pads, contiguous=False)
-        return depthwise_residual_gelu_plain(x, weight, bias, pre_weight, pre_bias, pads)
-    return depthwise_residual_gelu(x.contiguous(), weight, bias, pre_weight, pre_bias, pads=pads)
-
-
-class _Stage(torch.autograd.Function):
-    """The kernel entry forward (on the CPU its plain twin); the backward
-    recomputes the stage with the plain twin on the saved inputs and
-    differentiates that."""
-
-    @staticmethod
-    def forward(ctx, pads, x, weight, bias, pre_weight, pre_bias):
-        ctx.pads = pads
-        ctx.save_for_backward(x, weight, bias, pre_weight, pre_bias)
-        return _stage_forward(x, weight, bias, pre_weight, pre_bias, pads)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
-        with torch.enable_grad():
-            y = depthwise_residual_gelu_plain(*inputs, ctx.pads)
-        grads = iter(torch.autograd.grad(y, wanted, grad))
-        return (None, *(next(grads) if t is not None and t.requires_grad else None for t in inputs))
-
-
 def depthwise_stage(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     pre_weight: Optional[torch.Tensor] = None, pre_bias: Optional[torch.Tensor] = None,
@@ -197,6 +167,10 @@ def depthwise_stage(
     kernel, whatever the grad mode; on CPU tensors the twin on x as it lies,
     so that f32 tensors with the default pads make the module's former
     calls.  Raises on what the kernel refuses, on both devices."""
-    if not needs_graph((x, weight, bias, pre_weight, pre_bias)):
-        return _stage_forward(x, weight, bias, pre_weight, pre_bias, pads)
-    return _Stage.apply(pads, x, weight, bias, pre_weight, pre_bias)
+    if x.device.type == "cpu":
+        _check(x, weight, bias, pre_weight, pre_bias, pads, contiguous=False)
+    return recomputes_gradient(
+        lambda x, *params: depthwise_residual_gelu(x.contiguous(), *params, pads=pads),
+        lambda *tensors: depthwise_residual_gelu_plain(*tensors, pads),
+        x, weight, bias, pre_weight, pre_bias,
+    )

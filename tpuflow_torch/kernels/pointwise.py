@@ -14,8 +14,8 @@ evaluated on the f32 sum; sums in f32, one rounding to x's dtype.
 `pointwise_gemm` launches the kernel for CUDA tensors and runs
 `pointwise_gemm_plain` for CPU tensors; like every kernel entry it refuses a
 gradient.  `pointwise_stage`, which PCBlock4 calls, is the same with a
-backward: the plain twin recomputed, since the JAX package differentiates
-these convolutions through XLA's own.
+backward: the plain twin recomputed (`_nograd.recomputes_gradient`), since
+the JAX package differentiates these convolutions through XLA's own.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, count_launch, library
-from ._nograd import needs_graph, refuses_gradient
+from ._nograd import recomputes_gradient, refuses_gradient
 
 # The kernel's tile widths (csrc/pointwise_gemm.cu: one wgmma shape each).
 TILE_WIDTHS = (8,) + tuple(range(16, 129, 16))
@@ -219,37 +219,6 @@ def pointwise_gemm(
     return out
 
 
-def _stage_forward(x, weight, bias, residual, act, pad) -> torch.Tensor:
-    if x.device.type == "cpu":          # the twin on x as it lies, as the backward recomputes it
-        _check(x, weight, bias, residual, rows=False)
-        return pointwise_gemm_plain(x, weight, bias, residual, act)
-    rows = [t if t is None or _row_stride(t) is not None else t.contiguous() for t in (x, residual)]
-    return pointwise_gemm(rows[0], weight, bias, rows[1], act=act, pad=pad)
-
-
-class _Stage(torch.autograd.Function):
-    """The kernel entry forward (on the CPU its plain twin); the backward
-    recomputes the convolution with the plain twin on the saved inputs and
-    differentiates that."""
-
-    @staticmethod
-    def forward(ctx, act, pad, x, weight, bias, residual):
-        ctx.act = act
-        ctx.save_for_backward(x, weight, bias, residual)
-        return _stage_forward(x, weight, bias, residual, act, pad)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
-        with torch.enable_grad():
-            y = pointwise_gemm_plain(*inputs, ctx.act)
-        grads = iter(torch.autograd.grad(y, wanted, grad))
-        return (None, None, *(next(grads) if t is not None and t.requires_grad else None for t in inputs))
-
-
 def pointwise_stage(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     residual: Optional[torch.Tensor] = None, *, act: bool = False, pad: bool = False,
@@ -259,6 +228,13 @@ def pointwise_stage(
     whatever the grad mode (rows that are not evenly strided are made
     contiguous first); on CPU tensors the twin on x as it lies.  Raises on
     what the kernel refuses, on both devices."""
-    if not needs_graph((x, weight, bias, residual)):
-        return _stage_forward(x, weight, bias, residual, act, pad)
-    return _Stage.apply(act, pad, x, weight, bias, residual)
+    if x.device.type == "cpu":
+        _check(x, weight, bias, residual, rows=False)
+
+    def kernel(x, weight, bias, residual):
+        rows = [t if t is None or _row_stride(t) is not None else t.contiguous() for t in (x, residual)]
+        return pointwise_gemm(rows[0], weight, bias, rows[1], act=act, pad=pad)
+
+    return recomputes_gradient(
+        kernel, lambda *tensors: pointwise_gemm_plain(*tensors, act), x, weight, bias, residual,
+    )

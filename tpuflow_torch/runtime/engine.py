@@ -9,9 +9,7 @@ VideoFlow (MOF and BOF) and MemFlow.
   so that their correlation volumes fit the card, `_clamp_window_batch`),
   and dispatch is pipelined one batch deep: a batch's flows are copied to
   pinned host memory behind its refinement and pasted while the next batch
-  runs.  `TPUFLOW_STRIDE1=pairs` selects the pair-cached loop (each frame
-  pair's correlation built once), as in the JAX package: the same flows,
-  not the default.
+  runs.
 - `compute_flow_tiled`: one frame's flow in tile mode, `tile_batch` tiles
   of a shape group at a time.
 - `compute_flow` / `compute_flow_batch`: untiled full-frame flows, one
@@ -614,8 +612,7 @@ class FlowEngine:
         data axis and a multiple of it, the last batch is padded with its
         last window (tpuflow/runtime/engine.py:697-709, :752-756), each
         frame's features are computed once on the first slot, and each
-        replica refines its share of the batch's windows; the pairs loop is
-        single-device, as in the JAX engine."""
+        replica refines its share of the batch's windows."""
         self._require_loaded()
         arr = np.asarray(frames)
         n, h, w = arr.shape[:3]
@@ -633,10 +630,6 @@ class FlowEngine:
         d = self._data_axis()
         if self.mesh is not None:
             wb = max(wb, d) + (-max(wb, d)) % d
-        elif wb == 1 and os.environ.get("TPUFLOW_STRIDE1", "trio") == "pairs":
-            # Slower in the JAX package's measurements (tpuflow/runtime/
-            # engine.py:710-717); kept for its numerics, as there.
-            return self._stride1_pairs_loop(arr, tile_size, overlap, progress_cb)
         tiles_info, groups = self._tiling(h, w, tile_size)
         wb = self._clamp_window_batch(wb, t, groups)
         caches: Dict = {shape: {} for shape in groups}
@@ -724,63 +717,3 @@ class FlowEngine:
             pending[1].deliver(flows[pending[0]])
         self.memory = memory
         return flows
-
-    def _stride1_pairs_loop(self, arr: np.ndarray, tile_size: int, overlap: int, progress_cb=None) -> np.ndarray:
-        """The pair-cached stride-1 loop (tpuflow/runtime/engine.py:820):
-        per frame and tile group, the encoders and the prepared context
-        (net, inp, q, k) of the window's new frame, the correlation of each
-        new frame pair (interior p against p+1 and p-1), and one refinement
-        from these caches (MOFNet.refine_pairs), whose lookups run per pair.
-        The caches keep exactly this window's frames and pairs.  Pipelined one
-        window deep, as the trio loop."""
-        n, h, w = arr.shape[:3]
-        t = self.config.sequence_length
-        model = self.model
-        tiles_info, groups = self._tiling(h, w, tile_size)
-        fcaches: Dict = {shape: {} for shape in groups}   # f -> (feats, prepared context)
-        pcaches: Dict = {shape: {} for shape in groups}   # (a, b) -> correlation object
-        flows_out = np.empty((n, h, w, 2), np.float32)
-
-        def finalize(i, group_flows):
-            tile_flows: List = [None] * len(tiles_info)
-            for idxs, fetched in group_flows:
-                host = fetched.result()
-                for j, ti in enumerate(idxs):
-                    tile_flows[ti] = host[j]
-            with PASTE_SPAN:
-                flows_out[i] = paste_tile_flows(tile_flows, tiles_info, w, h, tile_size, overlap)
-            count("engine.frames")
-            if progress_cb is not None:
-                progress_cb(i, flows_out[i])
-
-        pending = None
-        for i in range(n):
-            win = centered_window_indices(n, i, t)
-            fwd_keys = [(win[p], win[p + 1]) for p in range(1, t - 1)]
-            bwd_keys = [(win[p], win[p - 1]) for p in range(1, t - 1)]
-            group_flows = []
-            for (th, tw), idxs in groups.items():
-                fc, pc = fcaches[(th, tw)], pcaches[(th, tw)]
-                for f in dict.fromkeys(win):
-                    if f not in fc:
-                        feats, ctx = self._tile_features(arr[f], tiles_info, idxs, overlap)
-                        fc[f] = (feats, model.prepare_context(ctx))
-                for key in dict.fromkeys(fwd_keys + bwd_keys):
-                    if key not in pc:
-                        pc[key] = model.pair_corr_state(fc[key[0]][0], fc[key[1]][0])
-                for f in [f for f in fc if f not in win]:
-                    del fc[f]
-                for key in [key for key in pc if key not in fwd_keys and key not in bwd_keys]:
-                    del pc[key]
-                up_fwd, _ = model.refine_pairs(
-                    [fc[win[p]][1] for p in range(1, t - 1)],
-                    [pc[key] for key in fwd_keys], [pc[key] for key in bwd_keys],
-                )
-                flows = self._middle_flow(up_fwd, th + 2 * overlap, tw + 2 * overlap)
-                group_flows.append((idxs, _Fetch(flows)))
-            if pending is not None:
-                finalize(*pending)
-            pending = (i, group_flows)
-        if pending is not None:
-            finalize(*pending)
-        return flows_out
