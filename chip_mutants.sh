@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Shows that chip_smoke.py's checks can fail: runs some of its phases on
 # copies of the repository made under a temporary directory, one unbroken
-# and twenty-three deliberately broken, and prints for each copy whether
+# and twenty-four deliberately broken, and prints for each copy whether
 # each phase passed.
 #   axes       tpuflow_torch/core/corr.py: the lookup window's x and y axes
 #              left unswapped              -> formulations and untiled fail
@@ -31,8 +31,11 @@
 #              K1's tolerance check fails too)
 #   tilebatch  tpuflow_torch/runtime/engine.py: compute_flow_tiled drops the
 #              last chunk of tile_batch tiles -> the 4K phase fails
-#   readermask tpuflow_torch/core/memflownet.py: the memory reader scores
-#              invalid slots like valid ones -> the MemFlow phase fails
+#   readermask tpuflow_torch/csrc/memory_read.cu: K9 lists every slot as
+#              valid                      -> K9's check and the MemFlow
+#                                            phase fail
+#   k9rescale  memory_read.cu: the readout not rescaled when a row's maximum
+#              grows                      -> K9's check fails
 #   taaflow    tpuflow_torch/tools/pipeline.py: the render's TAA warps along
 #              the current frame's flow instead of the previous one's
 #                                         -> the pipeline phase fails
@@ -58,7 +61,7 @@
 #              phase fail
 #   stripgrid  corr.py: make_corr decides on the strip's query grid, not
 #              the frame's                 -> the spatial phase fails
-# The unbroken copy must pass all fifteen phases.  Needs one CUDA card and
+# The unbroken copy must pass all sixteen phases.  Needs one CUDA card and
 # nvcc; the repository itself is never modified.
 #
 #     bash chip_mutants.sh                 # from the repository root
@@ -104,7 +107,8 @@ runs = {"formulations": lambda: cs.phase_formulations(engine, kernels),
         "train": lambda: cs.phase_train(cs.kernel_counters(), dev),
         "k1": lambda: cs.check_dense_lookup(dev), "k2": lambda: cs.check_flash_attention(dev),
         "k3": lambda: cs.check_corr_patch(dev, *k3),
-        "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band")}
+        "k4": lambda: cs.check_volume_patch(dev, "flat"), "k6": lambda: cs.check_volume_patch(dev, "band"),
+        "k9": lambda: cs.check_memory_read(dev)}
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level as k3f, flash2_patch_level_plain as k3p
 k3 = (k3f, k3p, "tpuflow/kernels/flashcorr2.py:246")
 for name in phases:
@@ -120,7 +124,7 @@ for name in phases:
 
 status=0
 copies=${*:-unbroken axes level k1clamp k2mask k2rescale k3origin k3chunk k3rule k4word k4last k4level \
-                k1stride tilebatch readermask taaflow phaseunwrap nccmean meshorder gradavg halo k1row0 k2keys \
+                k1stride tilebatch readermask k9rescale taaflow phaseunwrap nccmean meshorder gradavg halo k1row0 k2keys \
                 stripgrid}
 for copy in $copies; do
     rm -rf "$work/copy"
@@ -130,7 +134,7 @@ for copy in $copies; do
     cd "$work/copy" || exit 1
     edited=
     case $copy in
-        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,checked,uhd,memflow,pipeline,correction,dataparallel,spatial,train ;;
+        unbroken)  phases=formulations,untiled,k1,k2,k3,k4,k6,k9,checked,uhd,memflow,pipeline,correction,dataparallel,spatial,train ;;
         axes)      phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
                    sed -i 's/^    sampled = sampled.transpose(2, 3) .*$/    pass/' $edited ;;
         level)     phases=formulations,untiled; edited=tpuflow_torch/core/corr.py
@@ -157,8 +161,10 @@ for copy in $copies; do
                    sed -i 's/static_cast<const T\*>(levels.vol\[l\]) + (int64_t)q \* ((int64_t)lh \* lw);/static_cast<const T*>(levels.vol[l]) + (int64_t)q * ((int64_t)levels.lh[l > 0 ? l - 1 : 0] * levels.lw[l > 0 ? l - 1 : 0]);/' $edited ;;
         tilebatch) phases=uhd; edited=tpuflow_torch/runtime/engine.py
                    sed -i 's/for c0 in range(0, len(idxs), tile_batch):/for c0 in range(0, len(idxs) - tile_batch + 1, tile_batch):/' $edited ;;
-        readermask) phases=memflow; edited=tpuflow_torch/core/memflownet.py
-                   sed -i '/sim.masked_fill_(invalid\[i\], -1e9)/d' $edited ;;
+        readermask) phases=k9,memflow; edited=tpuflow_torch/csrc/memory_read.cu
+                   sed -i 's/if (valid\[(long long)b \* cap + s\] > 0.f) slots\[n++\]/slots[n++]/' $edited ;;
+        k9rescale) phases=k9; edited=tpuflow_torch/csrc/memory_read.cu
+                   sed -i 's/o\[r\]\[c\] \*= alpha;/o[r][c] *= 1.f;/' $edited ;;
         taaflow)   phases=pipeline; edited=tpuflow_torch/tools/pipeline.py
                    sed -i 's/out\["taa_frame"\] = self._advance("flow", frame_f32, self.prev_flow)/out["taa_frame"] = self._advance("flow", frame_f32, flow_t)/' $edited ;;
         phaseunwrap) phases=correction; edited=tpuflow_torch/tools/correction.py
@@ -181,7 +187,7 @@ for copy in $copies; do
     if [ -n "$edited" ] && cmp -s "$root/$edited" "$edited"; then
         echo "COPY $copy: the edit did not apply"; status=1
     fi
-    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^pipeline|^correction|^data parallel|^spatial|^strip probe|^train|Error|Traceback" | tee "$work/$copy.log"
+    python3 -c "$runner" "$copy" "$phases" 2>&1 | grep -E "^COPY|vs 'dense'|^K[12] |^flash2_patch_level|^dense_patch_level|^band_patch_level|checked\]|^4K|^memflow|^memory reader|^memory_read|^pipeline|^correction|^data parallel|^spatial|^strip probe|^train|Error|Traceback" | tee "$work/$copy.log"
     want=FAILED; [ "$copy" = unbroken ] && want=PASSED
     n=$(echo "$phases" | tr ',' '\n' | wc -l)
     [ "$(grep -c "^COPY $copy .* $want" "$work/$copy.log")" = "$n" ] || status=1

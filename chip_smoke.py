@@ -40,6 +40,13 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    plain twin and F.linear with the add and the GELU, and on ragged shapes
    (tails of every tile, 8- to 1-element copies, unaligned and strided
    rows) in bf16 and f32.
+   K9 (MemFlow's memory reader, no TPU kernel) at the 1080p grid with 8
+   slots: its f32 readout against the plain twin (TF32 off) on four
+   validity patterns (a planted one, non-contiguous, all, none), within
+   1e-4 of the readout's largest entry and 99 % of the bf16 readout
+   bit-equal; ragged grids (640x480 and B = 2 among them); timed at 8 and
+   4 valid slots beside its f32 FMA bound, its twin and one masked
+   F.scaled_dot_product_attention call in f32.
 4. end to end, tiled: FlowEngine.compute_flows_tiled_stride1 on six
    synthetic 1920x1080 frames at the full configuration (Twins-SVT, 4
    levels, radius 4, 12 iterations, T=5, bf16, seeded random weights).  The
@@ -70,7 +77,7 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    encoders' time per frame against Twins's and their profile, then every
    entry point on a small clip.
 12. MemFlow (model 'memflow', rope on, a memory of 8 slots): stream_flows on
-   ten 1920x1080 frames (K3 48, K2 12 and K7 72 launches per frame, K1 none; every
+   ten 1920x1080 frames (K3 48, K2 12, K7 72 and K9 1 launches per frame, K1 none; every
    slot valid after the clip), one frame's encoders, memory reader and
    refinement timed and the refinement profiled, the memory reader against
    a plain readout of the valid slots, every entry point against
@@ -143,7 +150,7 @@ prints no result lines); the MOF/Twins phases 4-10 share one engine:
    CPU with TF32 off.
 20. checked build, in a child process started before phase 2 (this script
    with --checked-build, run only by the script itself): every kernel built
-   with its bounds guards (kernels/_build.py, checked=True), each of the eight
+   with its bounds guards (kernels/_build.py, checked=True), each of the nine
    wrappers on its ragged and plane-edge shapes of phase 3; a guard's trap
    poisons the child's CUDA context and its non-zero exit fails the run.
 
@@ -1262,6 +1269,146 @@ def check_pointwise(dev) -> dict:
             "shapes": shapes, "per_frame": frame}
 
 
+# K9, MemFlow's memory reader: the 1080p grid with a memory of 8 slots,
+# validity patterns of batch row 0 (1 = valid), the f32 readout held to the
+# plain twin (TF32 off) within MEMREAD_ERR_SHARE of its largest entry, and
+# at least MEMREAD_BF16_EQUAL of its bf16 rounding bit-equal to the twin's.
+MEMREAD_GRID = (135, 240)
+MEMREAD_CAP = 8
+MEMREAD_PATTERNS = {"noncontiguous": (1, 0, 1, 1, 0, 0, 1, 0), "all": (1,) * 8, "empty": (0,) * 8}
+MEMREAD_TIMED = {8: (1,) * 8, 4: (1, 1, 1, 1, 0, 0, 0, 0)}
+MEMREAD_ERR_SHARE = 1e-4
+MEMREAD_BF16_EQUAL = 0.99
+# Ragged shapes: (h, w, per-row validity, query dtype, rope): the 640x480
+# grid (hw 4800, a ragged last query tile) with B = 2, grids whose last key
+# tile is ragged too, a grid smaller than one tile, a batch row with no
+# valid slot beside rows with some.
+MEMREAD_RAGGED = (
+    (60, 80, ((1, 0, 1, 1, 0, 0, 1, 0), (0, 1, 0, 0, 0, 0, 0, 1)), torch.bfloat16, True),
+    (60, 80, ((1, 1, 1, 1, 1, 1, 1, 1), (1, 0, 0, 0, 0, 0, 0, 0)), torch.float32, False),
+    (61, 83, ((0, 0, 1), (1, 1, 0), (0, 0, 0)), torch.float32, True),
+    (3, 5, ((1, 0, 1, 0, 1),), torch.bfloat16, True),
+    (17, 19, ((1,), (0,)), torch.float32, True),
+)
+
+
+def memread_draw(g, dev, h: int, w: int, validity, qdtype):
+    """q [B, hw, 64] in qdtype (std 2: the softmax is not flat), keys
+    [B, cap, hw, 64] and values [B, cap, hw, 128] in f32, valid [B, cap]."""
+    b, cap, hw = len(validity), len(validity[0]), h * w
+    q = (2 * torch.randn((b, hw, 64), generator=g, device=dev)).to(qdtype)
+    keys = torch.randn((b, cap, hw, 64), generator=g, device=dev)
+    values = torch.randn((b, cap, hw, 128), generator=g, device=dev)
+    return q, keys, values, torch.tensor(validity, dtype=torch.float32, device=dev)
+
+
+def memread_compare(what: str, q, keys, values, valid, table, ref=None) -> dict:
+    """K9 against the plain twin (or `ref`, a readout of the same function):
+    within MEMREAD_ERR_SHARE of the reference's largest entry and at least
+    MEMREAD_BF16_EQUAL of the bf16 readout bit-equal; a batch row with no
+    valid slot reads exact zeros."""
+    from tpuflow_torch.kernels.memread import memory_read, memory_read_plain
+
+    with torch.inference_mode():
+        got = memory_read(q, keys, values, valid, table)
+        ref = memory_read_plain(q, keys, values, valid, table) if ref is None else ref
+    torch.cuda.synchronize()
+    empty = valid.sum(dim=1) <= 0
+    err = (got - ref).abs().max().item()
+    limit = MEMREAD_ERR_SHARE * ref.abs().max().item()
+    equal = (got.bfloat16() == ref.bfloat16()).float().mean().item()
+    zeros = bool((got[empty] == 0).all()) if bool(empty.any()) else True
+    ok = bool(torch.isfinite(got).all()) and zeros and (bool(empty.all()) or (err <= limit and equal >= MEMREAD_BF16_EQUAL))
+    if not ok:
+        raise AssertionError(f"memory_read {what}: max |K9 - plain| {err:.3e} (limit {limit:.3e}), bf16 "
+                             f"bit-equal {equal:.6f} (at least {MEMREAD_BF16_EQUAL}), empty rows zero {zeros}")
+    return {"max_abs_err": err, "limit": limit, "bf16_equal_share": equal}
+
+
+def check_memory_read_ragged(g, dev) -> None:
+    from tpuflow_torch.kernels.memread import rope_table
+
+    for h, w, validity, qdtype, rope in MEMREAD_RAGGED:
+        q, keys, values, valid = memread_draw(g, dev, h, w, validity, qdtype)
+        table = rope_table(h, w, 64, dev) if rope else None
+        memread_compare(f"ragged {h}x{w} B {len(validity)}", q, keys, values, valid, table)
+    log(f"memory_read ragged: {len(MEMREAD_RAGGED)} shapes agree")
+
+
+def check_memory_read(dev) -> dict:
+    """K9 on the ragged shapes, then at the 1080p grid with 8 slots and a
+    bf16 query: the validity patterns of MEMREAD_PATTERNS and a planted
+    case (3 valid slots, each invalid one holding a valid slot's keys with
+    its values negated, so that a slot let through moves the readout by its
+    own size: held to the twin run on the valid slots alone, unmasked).
+    Then its time at 8 and 4 valid slots beside its bound (the operations
+    over the valid slots at the f32 FMA rate), the plain twin's time and
+    library_ms, one F.scaled_dot_product_attention call in f32 with the
+    slot mask (the memory-efficient backend; a yardstick that the port never
+    calls)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tpuflow_torch.kernels.memread import memory_read, memory_read_plain, rope_rotate, rope_table
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    check_memory_read_ragged(g, dev)
+    h, w = MEMREAD_GRID
+    hw, cap = h * w, MEMREAD_CAP
+    table = rope_table(h, w, 64, dev)
+    q, keys, values, _ = memread_draw(g, dev, h, w, ((1,) * cap,), torch.bfloat16)
+    cases = {}
+    for name, pattern in MEMREAD_PATTERNS.items():
+        valid = torch.tensor([pattern], dtype=torch.float32, device=dev)
+        cases[name] = memread_compare(f"1080p {name}", q, keys, values, valid, table)
+    # Planted: slots 0-2 valid; slot s >= 3 holds slot s % 3's keys and
+    # minus its values.
+    src = torch.arange(cap, device=dev) % 3
+    valid = (torch.arange(cap, device=dev) < 3).float()[None]
+    planted_v = torch.where(valid[0, :, None, None] > 0, 1.0, -1.0) * values[:, src]
+    planted_k = keys[:, src].contiguous()
+    with torch.inference_mode():
+        alone = memory_read_plain(q, keys[:, :3].contiguous(), values[:, :3].contiguous(), valid[:, :3], table)
+        leaky = memory_read_plain(q, planted_k, planted_v, torch.ones_like(valid), table)
+    cases["planted"] = memread_compare("1080p planted", q, planted_k, planted_v, valid, table, ref=alone)
+    cases["planted"]["every_slot_diff"] = (leaky - alone).abs().max().item()
+    del planted_k, planted_v, alone, leaky
+    log(f"memory_read at {h}x{w}, {cap} slots: {json.dumps(cases)}")
+
+    timed = {}
+    for n_valid, pattern in MEMREAD_TIMED.items():
+        valid = torch.tensor([pattern], dtype=torch.float32, device=dev)
+        with torch.inference_mode():
+            ms = time_ms(lambda: memory_read(q, keys, values, valid, table), reps=5, warmup=1)
+            plain_ms = time_ms(lambda: memory_read_plain(q, keys, values, valid, table), reps=3, warmup=1)
+            qr = rope_rotate(q.float(), table)[:, None]
+            kr = rope_rotate(keys, table).reshape(1, 1, cap * hw, 64)
+            vr = values.reshape(1, 1, cap * hw, 128)
+            mask = (valid > 0).repeat_interleave(hw, dim=1)[:, None, None, :]
+            try:
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)[:, 0]
+                    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask),
+                                         reps=3, warmup=1)
+                library_err = (lib - memory_read(q, keys, values, valid, table)).abs().max().item()
+            except RuntimeError as exc:
+                library_ms = library_err = None
+                log(f"memory_read: F.scaled_dot_product_attention (memory-efficient, f32, masked) refused: {exc}")
+            del qr, kr, vr, mask
+        flops = 2.0 * hw * (n_valid * hw) * (64 + 128)
+        bound_ms = flops / F32_FLOP_PER_S * 1e3
+        timed[n_valid] = {"ms": ms, "bound_ms": bound_ms, "bound_by": "operations (f32 FMAs)",
+                          "roofline_pct": 100 * bound_ms / ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                          "library_max_abs_diff": library_err, "tflop": flops / 1e12}
+        log(f"memory_read {n_valid} of {cap} slots valid at {h}x{w}: {ms:.3f} ms (bound {bound_ms:.3f}, "
+            f"{timed[n_valid]['roofline_pct']:.1f} %), plain {plain_ms:.3f} ms, library {library_ms} ms")
+    del q, keys, values, table
+    torch.cuda.empty_cache()
+    return {"name": "memory_read", "route": "cuda", "source": "tpuflow_torch/csrc/memory_read.cu",
+            "replaces": "no TPU kernel (the JAX reader, tpuflow/core/memflownet.py:133-188, is XLA)",
+            "cases_1080p": cases, "timed_1080p": timed}
+
+
 def check_volume_patch_far(dev) -> dict:
     """K4 and K6 on patches that read entries beyond element offset 2^31:
     one bf16 buffer of 9000 x 500 x 500 entries (4.5 GB) read as a flat
@@ -2104,7 +2251,7 @@ def phase_memflow(kernels) -> dict:
     flows, wall, peak, launches = memflow_stream(engine, kernels, frames)
     want = expected_launches(kernels, steps=n * cfg.decoder_depth,
                              flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
-                             flash_attention_fwd=n * cfg.decoder_depth)
+                             flash_attention_fwd=n * cfg.decoder_depth, memory_read=n)
     if launches != want:
         raise AssertionError(f"memflow 1080p: kernel launches {launches}, expected {want}")
     log(f"memflow stream_flows: {n} frames of {MAIN_W}x{MAIN_H} in {wall:.3f} s = {n / wall:.4f} frames/s, "
@@ -2148,7 +2295,8 @@ def phase_memflow(kernels) -> dict:
     small = synthetic_clip(sn, sh, sw, SEED + 18)
     engine.stream_flows(small[:2])                                 # warm-up
     _, s_wall, s_peak, s_launches = memflow_stream(engine, kernels, small)
-    want = expected_launches(kernels, steps=sn * cfg.decoder_depth, dense_lookup=sn * cfg.decoder_depth)
+    want = expected_launches(kernels, steps=sn * cfg.decoder_depth, dense_lookup=sn * cfg.decoder_depth,
+                             memory_read=sn)
     if s_launches != want:
         raise AssertionError(f"memflow {sw}x{sh}: kernel launches {s_launches}, expected {want}")
     log(f"memflow stream_flows: {sn} frames of {sw}x{sh} in {s_wall:.3f} s = {sn / s_wall:.4f} frames/s, "
@@ -2165,7 +2313,7 @@ CHECKED_ARG = "--checked-build"
 
 def phase_checked_start():
     """Starts this script in a child process with CHECKED_ARG (main_checked):
-    the bounds-checked build of every kernel, each of the eight wrappers on its
+    the bounds-checked build of every kernel, each of the nine wrappers on its
     ragged and plane-edge shapes.  A trap poisons the CUDA context, hence the
     process of its own.  Returns the child, for phase_checked_wait."""
     from pathlib import Path
@@ -2223,6 +2371,7 @@ def main_checked() -> int:
         check_volume_patch_ragged(torch.Generator(device=dev).manual_seed(SEED + 4), dev, layout)
     check_depthwise_ragged(torch.Generator(device=dev).manual_seed(SEED + 40), dev)
     check_pointwise_ragged(torch.Generator(device=dev).manual_seed(SEED + 41), dev)
+    check_memory_read_ragged(torch.Generator(device=dev).manual_seed(SEED + 42), dev)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     if min(launches.values()) < 1:
@@ -2270,7 +2419,7 @@ def phase_parity(kernels) -> dict:
         cfg = engine.config
         want = expected_launches(kernels, steps=n * cfg.decoder_depth,
                                  flash2_patch_level=n * cfg.decoder_depth * cfg.corr_levels,
-                                 flash_attention_fwd=n * cfg.decoder_depth)
+                                 flash_attention_fwd=n * cfg.decoder_depth, memory_read=n)
         if dev == "cuda" and read_launches(kernels) != want:
             raise AssertionError(f"parity memflow: kernel launches {read_launches(kernels)}, expected {want}")
     rel = {}
@@ -2719,7 +2868,8 @@ def phase_pipeline(kernels, engine_fps: Optional[dict] = None) -> dict:
         # --model memflow.
         args = argv("memflow", "--model", "memflow", "--taa", "--save-flow", "both")
         res = run_cli(kernels, args)
-        want = expected_launches(kernels, steps=n * 12, flash2_patch_level=n * 48, flash_attention_fwd=n * 12)
+        want = expected_launches(kernels, steps=n * 12, flash2_patch_level=n * 48, flash_attention_fwd=n * 12,
+                                 memory_read=n)
         if res["launches"] != want:
             raise AssertionError(f"pipeline --model memflow: kernel launches {res['launches']}, expected {want}")
         out["memflow"] = cli_summary("--model memflow", res, n)
@@ -3733,18 +3883,19 @@ def phase_train(kernels, dev) -> dict:
 
 
 def kernel_counters() -> dict:
-    """The eight kernels' wrappers by name; each counts its launches."""
+    """The nine kernels' wrappers by name; each counts its launches."""
     from tpuflow_torch.kernels.bandlookup import band_patch_level
     from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level
     from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu
     from tpuflow_torch.kernels.flashattn import flash_attention_fwd
     from tpuflow_torch.kernels.flashcorr import flash_patch_level
     from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
+    from tpuflow_torch.kernels.memread import memory_read
     from tpuflow_torch.kernels.pointwise import pointwise_gemm
 
     return {fn.__name__: fn for fn in (dense_lookup, flash_attention_fwd, flash2_patch_level,
                                        dense_patch_level, flash_patch_level, band_patch_level,
-                                       depthwise_residual_gelu, pointwise_gemm)}
+                                       depthwise_residual_gelu, pointwise_gemm, memory_read)}
 
 
 def main() -> int:
@@ -3779,6 +3930,7 @@ def main() -> int:
     far = check_volume_patch_far(dev)
     depthwise = check_depthwise(dev)
     pointwise = check_pointwise(dev)
+    memread = check_memory_read(dev)
     for row in rows:
         if row["name"] in ("dense_patch_level", "band_patch_level"):
             row["farthest_entry_checked"] = far["flat" if row["name"] == "dense_patch_level" else "band"]
@@ -3822,8 +3974,9 @@ def main() -> int:
         "band_patch_level": forms["band"]["launches"],
         "depthwise_residual_gelu": memflow["launches"],
         "pointwise_gemm": memflow["launches"],
+        "memory_read": memflow["launches"],
     }
-    rows += [depthwise, pointwise]
+    rows += [depthwise, pointwise, memread]
     for row in rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
         if row["launches"] < 1:

@@ -49,6 +49,7 @@ from tpuflow_torch.core.memflownet import (
     rope_2d,
 )
 from tpuflow_torch.core.sk import SKMotionEncoderMem, SKUpdateBlockMem
+from tpuflow_torch.kernels.memread import memory_read, memory_read_plain, rope_table
 from tpuflow_torch.runtime.convert import load_torch_state_dict, state_dict_from_jax
 from tpuflow_torch.runtime.convert_memflow import MEMFLOW_IGNORE
 from tpuflow_torch.runtime.engine import FlowEngine
@@ -203,6 +204,26 @@ def test_memory_reader_matches_jax(models, fill, use_rope):
     for row in range(2):
         if mem["valid"][row].sum() == 0:
             np.testing.assert_array_equal(got[row], np.broadcast_to(bias, got[row].shape))
+
+
+@pytest.mark.parametrize("use_rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("fill", ["empty", "partial", "full"])
+def test_memory_read_wrapper_matches_jax_readout(fill, use_rope):
+    """K9's wrapper on CPU tensors is its plain twin, and gives the JAX
+    reader's readout before out_proj (the JAX reader with an identity
+    out_proj)."""
+    rng = np.random.default_rng(34)
+    mem = memory_case(fill, rng)
+    query = rand(rng, 2, H8, W8, 64)
+    jreader = jmem.MemoryReader(128, use_rope, dtype=jnp.float32)
+    identity = {"params": {"out_proj": {"kernel": jnp.eye(128)[None, None], "bias": jnp.zeros(128)}}}
+    ref = np.asarray(jreader.apply(identity, jnp.asarray(query), jmem.MemoryState(*map(jnp.asarray, mem.values()))))
+    tm = t_memory(mem)
+    table = rope_table(H8, W8, 64) if use_rope else None
+    q = torch.from_numpy(query).reshape(2, H8 * W8, 64)
+    got = memory_read(q, tm.keys, tm.values, tm.valid, table)
+    assert torch.equal(got, memory_read_plain(q, tm.keys, tm.values, tm.valid, table))
+    np.testing.assert_allclose(got.numpy().reshape(2, H8, W8, 128), ref, rtol=1e-5, atol=1e-5)
 
 
 # ---- GMA with materialized probabilities -----------------------------------

@@ -54,6 +54,7 @@ from tpuflow_torch.kernels.bandlookup import band_patch_level, band_patch_levels
 from tpuflow_torch.kernels.denselookup import dense_lookup, dense_patch_level, dense_patch_levels
 from tpuflow_torch.kernels.depthwise import depthwise_residual_gelu
 from tpuflow_torch.kernels.flashattn import flash_attention_fwd
+from tpuflow_torch.kernels.memread import memory_read
 from tpuflow_torch.kernels.flashcorr import flash_patch_level
 from tpuflow_torch.kernels.flashcorr2 import flash2_patch_level
 from tpuflow_torch.runtime import profiling
@@ -450,6 +451,7 @@ def wrapper_calls():
         "flash2_patch_level": lambda: flash2_patch_level(f1[:1], f2l, idx[:1], idx[:1], grid_w=4),
         "flash_patch_level": lambda: flash_patch_level(f1[:1], f2l, idx[:1], idx[:1]),
         "depthwise_residual_gelu": lambda: depthwise_residual_gelu(rand(1, 6, 7, 4), rand(4, 1, 7, 7), rand(4)),
+        "memory_read": lambda: memory_read(rand(1, 6, 64), rand(1, 2, 6, 64), rand(1, 2, 6, 128), torch.ones(1, 2)),
     }
 
 
@@ -460,7 +462,7 @@ def test_kernel_wrappers_refuse_a_gradient(name):
     result raises and names the differentiable formulations."""
     counters = [f"kernels.{fn.__name__}.launches" for fn in (dense_lookup, dense_patch_level, band_patch_level,
                                                              flash_attention_fwd, flash2_patch_level, flash_patch_level,
-                                                             depthwise_residual_gelu)]
+                                                             depthwise_residual_gelu, memory_read)]
 
     def launches():
         found = profiling.snapshot()["counters"]

@@ -16,8 +16,8 @@ flow at 1/8 resolution [B, H/8, W/8, 2]).
 - The memory: keys are projections of the context (qk_proj), values of the
   last iteration's motion features (v_proj).  One readout per frame
   (MemoryReader: exact softmax over every valid (slot, position) token,
-  optionally with 2D rotary positions) joins the motion encoder's input on
-  every iteration.
+  optionally with 2D rotary positions; kernel K9 on the card) joins the
+  motion encoder's input on every iteration.
 - decoder_depth steps of SKUpdateBlockMem, then the convex 8x upsample with
   the last step's mask.
 
@@ -27,16 +27,16 @@ caller across a clip (runtime/engine.py stream_flows).
 
 from __future__ import annotations
 
-import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..kernels.memread import memory_read_stage, rope_rotate, rope_table
 from ..runtime.profiling import span
 from .corr import DENSE_LOOKUP_IMPLS, MATERIALIZE_THRESHOLD, DenseCorrPyramid, make_corr
 from .encoders import make_encoder
-from .gma import Attention, _pick_chunk, conv1x1, materialize_attention
+from .gma import Attention, conv1x1, materialize_attention
 from .mofnet import encode_chunked
 from .sk import SKUpdateBlockMem
 from .update import upsample_flow_convex
@@ -99,26 +99,8 @@ def rope_2d(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
     axis, in f32: the first d/2 channels rotate with the x coordinate, the
     second d/2 with y.  Within each half, channel i of the first quarter
     pairs with channel i of the second (no interleaving), rotated by
-    pos * 10000^(-i / (d/4))."""
-    d = t.shape[-1]
-    dh = d // 2
-    if dh % 2:
-        raise ValueError(f"rope_2d needs a channel count divisible by 4, got {d}")
-    half = dh // 2
-    ys, xs = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=t.device),
-        torch.arange(w, dtype=torch.float32, device=t.device),
-        indexing="ij",
-    )
-    freqs = 10000.0 ** (-torch.arange(half, dtype=torch.float32, device=t.device) / half)
-
-    def rot(x, pos):
-        ang = pos.reshape(-1)[:, None] * freqs[None, :]          # [hw, half]
-        cos, sin = torch.cos(ang), torch.sin(ang)
-        x1, x2 = x[..., :half].float(), x[..., half:].float()
-        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-    return torch.cat([rot(t[..., :dh], xs), rot(t[..., dh:], ys)], dim=-1).to(t.dtype)
+    pos * 10000^(-i / (d/4)) (kernels/memread.py rope_table, rope_rotate)."""
+    return rope_rotate(t, rope_table(h, w, t.shape[-1], t.device))
 
 
 class MemoryReader(nn.Module):
@@ -127,44 +109,37 @@ class MemoryReader(nn.Module):
     channels).
 
     In f32: q is scaled by dk^-1/2, then q and the keys are rotated
-    (use_rope); scores of invalid slots are -1e9 before the softmax; a batch
-    row with no valid slot reads zeros.  The queries run `_pick_chunk(hw)`
-    rows at a time, so the scores are [chunk, cap*hw] per step, never
-    [hw, cap*hw].
+    (use_rope); the softmax runs over the valid slots' tokens; a batch row
+    with no valid slot reads zeros.  Kernel K9 (kernels/memread.py) on the
+    card, its plain twin on the CPU; the rotary table is built once per
+    grid and device.
     """
 
     def __init__(self, value_dim: int = 128, use_rope: bool = False):
         super().__init__()
         self.use_rope = use_rope
         self.out_proj = nn.Conv2d(value_dim, 128, 1)
+        self._tables: dict = {}
+
+    def rope_table(self, h: int, w: int, dk: int, device) -> torch.Tensor:
+        """The rotary table [h*w, 2, dk/2] for this grid, built once per
+        (h, w, dk, device)."""
+        key = (h, w, dk, torch.device(device))
+        table = self._tables.get(key)
+        if table is None:
+            # An ordinary tensor even when built under inference mode: a
+            # later backward through the reader saves it.
+            with torch.inference_mode(False):
+                table = self._tables[key] = rope_table(h, w, dk, device)
+        return table
 
     @span("tpuflow.memflow.read")
     def forward(self, query: torch.Tensor, mem: MemoryState) -> torch.Tensor:
         """query [B, h, w, dk] -> readout [B, h, w, 128] in query's dtype."""
         b, h, w, dk = query.shape
-        hw = h * w
-        cap = mem.valid.shape[1]
-        dv = mem.values.shape[-1]
-        q = query.reshape(b, hw, dk).float() * (1.0 / math.sqrt(dk))
-        k = mem.keys.float()
-        if self.use_rope:
-            q = rope_2d(q, h, w)
-            k = rope_2d(k, h, w)
-        k = k.reshape(b, cap * hw, dk)
-        v = mem.values.reshape(b, cap * hw, dv).float()
-        invalid = (mem.valid <= 0).repeat_interleave(hw, dim=1)          # [B, cap*hw]
-        chunk = _pick_chunk(hw)
-        read = torch.empty((b, hw, dv), dtype=torch.float32, device=query.device)
-        for i in range(b):
-            kt = k[i].t()
-            for c0 in range(0, hw, chunk):
-                sim = torch.matmul(q[i, c0 : c0 + chunk], kt)
-                sim.masked_fill_(invalid[i], -1e9)
-                read[i, c0 : c0 + chunk] = torch.matmul(torch.softmax(sim, dim=-1), v[i])
-                del sim
-        any_valid = (mem.valid.sum(dim=1) > 0)[:, None, None]
-        read = torch.where(any_valid, read, torch.zeros((), device=read.device))
-        return conv1x1(read.reshape(b, h, w, dv).to(query.dtype), self.out_proj)
+        table = self.rope_table(h, w, dk, query.device) if self.use_rope else None
+        read = memory_read_stage(query.reshape(b, h * w, dk), mem.keys, mem.values, mem.valid, table)
+        return conv1x1(read.reshape(b, h, w, -1).to(query.dtype), self.out_proj)
 
 
 class MemEncoded(NamedTuple):

@@ -16,4 +16,6 @@ K7 depthwise.depthwise_residual_gelu  csrc/depthwise.cu (no TPU kernel:
    PCBlock4's depthwise stages, which the JAX package left to XLA)
 K8 pointwise.pointwise_gemm        csrc/pointwise_gemm.cu (no TPU kernel:
    PCBlock4's 1x1 convs with their adds and GELUs, left to XLA there too)
+K9 memread.memory_read             csrc/memory_read.cu (no TPU kernel:
+   MemFlow's memory reader, an XLA einsum chain in the JAX package)
 """

@@ -32,7 +32,10 @@ from ..runtime import profiling
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("dense_lookup", "flash_attention", "corr_patch", "volume_patch", "depthwise", "pointwise_gemm")
+SOURCES = (
+    "dense_lookup", "flash_attention", "corr_patch", "volume_patch", "depthwise", "pointwise_gemm",
+    "memory_read",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
