@@ -14,9 +14,12 @@ count is the same work whatever implements it.  The formulas are here:
   bfloat16.
 
 A route that declares no such count gets None, and its reader reads nothing.
+The kernels' own counts are beside this file: K1's bytes in lookup.py, K3's
+operations and bytes in patch_lookup.py, K9's operations in memory_read.py.
 
 Published H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s in
-bfloat16, 3.35 TB/s of HBM3, at the full power limit of 700 W.
+bfloat16, 67 TFLOP/s in float32 outside the tensor cores, 3.35 TB/s of
+HBM3, at the full power limit of 700 W.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 

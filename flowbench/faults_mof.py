@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""What the check of a tiled MOF cell has to catch, planted as faults.py
-plants MemFlow's (each function takes the run and its route, after set-up
-and before the warm-up, and changes what the timed path delivers):
+"""What the check of a MOF cell has to catch, planted as faults.py plants
+MemFlow's (each function takes the run and its route, after set-up and
+before the warm-up, and changes what the timed path delivers).  The plants
+drive both MOF routes: the tiled cell, mof-tiled-stride1-1080p
+(`compute_flows_tiled_stride1`), and the untiled one, mof-untiled-1080p
+(`compute_flow_batch`, one centred window of whole frames a frame).
 
 - `control`: the lower-precision control, the plain reference in fp8
-  (reference/control.py) put in the program's place: every frame of a
-  segment from its centred window, tile by tile, as the check computes it,
-  instead of `compute_flows_tiled_stride1`.
+  (reference/control.py) put in the program's place: each frame that the
+  route asks the engine for computed by the route's own `reference_flow`
+  from its centred window, as the check computes it (tile by tile on the
+  tiled route, over whole frames on the untiled one), instead of the
+  engine's entry.
 - `zero_start`: the refinement's motion hidden state started from zeros,
   not from the learned `init_hidden_state`.
 - `flow_altered`: each window's forward flows moved by 16 px over a 16 x 16
@@ -17,6 +22,8 @@ faults.py's (its `control` and `flow_altered` in place of MemFlow's), in
 one process on the card:
 
     python3 flowbench/faults_mof.py --workload mof-tiled-stride1-1080p --seeds 30 \\
+        --planted control:3,zero_start:3,flow_altered:1
+    python3 flowbench/faults_mof.py --workload mof-untiled-1080p --seeds 30 \\
         --planted control:3,zero_start:3,flow_altered:1
 """
 
@@ -40,11 +47,18 @@ def fp8_control(run, route) -> None:
 
     model = control.to_fp8(run.reference(route.ref_state))
 
-    def compute_flows_tiled_stride1(frames, tile_size=None, window_batch=1):
+    def flows(frames, indices):
         with NoTF32():
-            return np.stack([route.reference_flow(model, frames, i) for i in range(len(frames))])
+            return np.stack([route.reference_flow(model, frames, i) for i in indices])
+
+    def compute_flows_tiled_stride1(frames, tile_size=None, window_batch=1):
+        return flows(frames, range(len(frames)))
+
+    def compute_flow_batch(frames, frame_indices):
+        return flows(frames, frame_indices)
 
     run.engine.compute_flows_tiled_stride1 = compute_flows_tiled_stride1
+    run.engine.compute_flow_batch = compute_flow_batch
 
 
 def zero_start(run, route) -> None:
@@ -53,8 +67,8 @@ def zero_start(run, route) -> None:
 
     def forward(flow, mhs, corr, bs):
         if mhs is None:
-            bn, _, h, w = flow.shape
-            mhs = torch.zeros((bs, bn // bs, enc.hidden_ch, h, w), dtype=corr.dtype, device=corr.device)
+            bn, h, w, _ = flow.shape
+            mhs = torch.zeros((bs, bn // bs, h, w, enc.hidden_ch), dtype=corr.dtype, device=corr.device)
         return orig(flow, mhs, corr, bs)
 
     enc.forward = forward

@@ -1,8 +1,12 @@
 """mof_encode_ms_per_frame (layer: core/mofnet encode (Twins fnet/cnet)):
-device time of the program's span tpuflow.mof.encode (MOFNet.frame_features
-on the stride-1 path: both Twins encoders on each new frame's tiles, once a
-frame) over the traced call, from the program's own registry
-(flowbench/spans.py), per delivered frame.  Moves frames_per_s."""
+device time of the program's span tpuflow.mof.encode over the traced call,
+from the program's own registry (flowbench/spans.py), per delivered frame.
+On the tiled stride-1 path the span wraps MOFNet.frame_features: both Twins
+encoders on each new frame's tiles, once a frame.  On the untiled path it
+wraps MOFNet.encode, once a window: fnet on its 5 frames, cnet on its 3
+interior ones, the context's preparation (GMA's q and k), and the nested
+tpuflow.mof.corr (the correlation build, which mof_corr_ms_per_frame reads
+on its own).  Moves frames_per_s."""
 
 from flowbench import spans
 

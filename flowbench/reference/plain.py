@@ -2,7 +2,8 @@
 pipeline's description (InputPadder), independent of the program: frames
 edge-padded to a multiple of 8, split evenly between the two sides (the
 extra row or column at the bottom or right); MemFlow streamed over a
-segment with its memory carried; and the flows' end-point gaps.
+segment with its memory carried; and the flows' end-point gaps and outlier
+share.
 """
 
 from __future__ import annotations
@@ -44,6 +45,17 @@ def memflow_replay(model, frames: np.ndarray, upto: int, device) -> np.ndarray:
         flow, memory, _ = model(pair, memory)
         out[j] = flow[0, :, top : top + h, left : left + w].permute(1, 2, 0).cpu().numpy()
     return out
+
+
+def flow_outlier_pct(got: np.ndarray, ref: np.ndarray, px: float = 3.0, share: float = 0.05) -> float:
+    """The share of pixels, in percent, whose end-point distance from `ref`
+    exceeds both `px` pixels and `share` of the reference's own length:
+    KITTI 2015's Fl (Menze and Geiger, CVPR 2015), which judges slow and
+    fast motion alike."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    epe = np.sqrt(((got - ref) ** 2).sum(-1))
+    length = np.sqrt((ref**2).sum(-1))
+    return float(100.0 * np.mean((epe > px) & (epe > share * length)))
 
 
 def flow_gaps(got: np.ndarray, ref: np.ndarray) -> Tuple[float, float, float]:

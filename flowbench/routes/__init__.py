@@ -8,6 +8,8 @@ A route also says what one delivered frame's work is, for the readers that
 count it (counts/): `reference_frame(device)`, a call of the plain
 reference whose operations are one delivered frame's, and `aggregation()`,
 GMA's aggregation per delivered frame as (rows, tokens, width,
-iterations).  Both follow from the configuration and the cell's shapes
-alone, never from the program.  A route without one leaves its reader
-without a reading."""
+iterations); and, where its path runs them, `lookups()` (K1's dense
+lookups), `patch_lookups()` (K3's FlashCorr2 lookups) and `memory_reads()`
+(K9's readout), whose tuples counts/ documents.  All follow from the
+configuration, the traffic and the cell's shapes alone, never from the
+program.  A route without one leaves its reader without a reading."""

@@ -37,6 +37,27 @@ class Route:
         h, w = self.run.traffic["height"], self.run.traffic["width"]
         return 1, math.ceil(h / 8) * math.ceil(w / 8), mc["context_dim"], mc["decoder_depth"]
 
+    def patch_lookups(self):
+        """FlashCorr2's lookups per delivered frame (counts: K3's work), as
+        (lookups, queries a lookup, levels, radius, channels): one lookup an
+        iteration over the frame's 1/8 grid, which lies above the 168 x 168
+        cells up to which the 'auto' correlation materializes its volume."""
+        mc = self.run.config["model_config"]
+        _, tokens, _, depth = self.aggregation()
+        return depth, tokens, mc["corr_levels"], mc["corr_radius"], mc["feature_dim"]
+
+    def memory_reads(self):
+        """The memory's readout per delivered frame (counts: K9's work), as
+        (valid slots read, queries, keys a slot, dk, dv): frame i of a
+        segment reads min(i, capacity) slots (the memory is empty at a
+        segment's start), averaged over the segment's frames (6.5 at 24
+        frames and 8 slots); one query and one key a cell of the 1/8 grid."""
+        ra = self.run.config["reference_args"]
+        n = self.run.traffic["segment_frames"]
+        slots = sum(min(i, ra["memory_capacity"]) for i in range(n)) / n
+        _, tokens, _, _ = self.aggregation()
+        return slots, tokens, tokens, ra["key_dim"], ra["value_dim"]
+
     def setup(self) -> None:
         run = self.run
         sd, self.ref_state = run.draw_weights()

@@ -26,7 +26,7 @@ SMALL = {**small.DEPTH,
 K1_US, K2_US = 1500.0, 2000.0
 MEMFLOW_READERS = {"step_mfu_pct", "sk_update_ms_per_frame", "k2_roofline", "k3_ms_per_frame",
                    "device_idle_pct.engine", "reader_ms_per_frame", "encode_ms_per_frame",
-                   "upload_idle_ms_per_frame"}
+                   "upload_idle_ms_per_frame", "k3_roofline", "k9_roofline"}
 MOF_READERS = {"step_mfu_pct", "k2_roofline", "sk_update_ms_per_frame", "device_idle_pct.engine",
                "upload_idle_ms_per_frame", "k1_roofline", "mof_corr_ms_per_frame", "mof_refine_ms_per_frame",
                "mof_encode_ms_per_frame"}

@@ -87,7 +87,7 @@ def test_the_cells_readers_follow_their_lists(copy):
     spec = spec_mod.Spec(copy[0] / "flowbench")
     assert {m["name"] for m in spec.per_layer(CELL)} == {"step_mfu_pct", "k2_roofline"}
     assert {m["name"] for m in spec.end_to_end(CELL)} == {"frames_per_s", "peak_mem_gib", "setup_s"}
-    assert len(spec.per_layer("memflow-stream-1080p")) == 8
+    assert len(spec.per_layer("memflow-stream-1080p")) == 10
 
 
 def test_the_routes_counts_at_1080p(copy):

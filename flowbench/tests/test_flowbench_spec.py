@@ -38,6 +38,12 @@ def test_names_and_units():
         assert m["better"] in ("lower", "higher")
 
 
+def test_each_pair_of_config_and_traffic_names_one_cell():
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(pairs) == len(set(pairs))
+    assert {c["name"] for c in BENCH["configs"]} == {w["config"] for w in BENCH["workloads"]}
+
+
 def test_cells_name_their_files():
     spec = spec_mod.Spec()
     configs = {c["name"]: c for c in BENCH["configs"]}
